@@ -1,4 +1,4 @@
-"""Carry state across from the JAX package, and back to numpy.
+"""Carry settings and state across from the JAX package, and back to numpy.
 
 The JAX package's containers (``FrameFeatures``, ``MapState``,
 ``PoseHistory``, ``Vocabulary``, ``BAProblem``, ``LocalBAWindow``,
@@ -7,6 +7,9 @@ and dtypes, so conversion is field by field.  The JAX side is read as
 numpy arrays (``np.asarray`` of each leaf — this module never imports
 jax); 32-bit unsigned descriptor words are viewed as ``int32`` with the
 same bits.
+
+Settings cross as JSON text (``settings_from_jax``), so no class of the
+JAX package is touched here.
 
 ``EngineState.key`` is not carried: ``jax.random`` keys and
 ``torch.Generator`` states have no common meaning, so the port's engine
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from mageslam_tpu_torch.bow.vocab import Vocabulary
+from mageslam_tpu_torch.config import MageSlamSettings
 from mageslam_tpu_torch.geometry.camera import CameraCalibration
 from mageslam_tpu_torch.mapping.local_ba import LocalBAWindow
 from mageslam_tpu_torch.mapstore.map_state import MapState
@@ -37,6 +41,12 @@ _NESTED = {
 # fields whose JAX dtype is uint32 (descriptor words)
 UINT32_FIELDS = frozenset({"desc", "kf_desc", "mp_desc", "train_desc",
                            "l1_desc", "leaf_desc"})
+
+
+def settings_from_jax(s) -> MageSlamSettings:
+    """The port's settings object with the values of a JAX-package
+    ``MageSlamSettings``, carried through its JSON form."""
+    return MageSlamSettings.from_json(s.to_json())
 
 
 def tensor_from_numpy(x, device=None) -> torch.Tensor:

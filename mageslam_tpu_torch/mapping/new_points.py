@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from mageslam_tpu.config import NewMapPointsCreationSettings
+from mageslam_tpu_torch.config import NewMapPointsCreationSettings
 from mageslam_tpu_torch.geometry import se3, triangulation
 from mageslam_tpu_torch.geometry.camera import CameraCalibration, project
 from mageslam_tpu_torch.mapstore import map_state as ms

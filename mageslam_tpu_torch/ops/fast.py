@@ -50,6 +50,33 @@ def fast_score_map(img: torch.Tensor, threshold) -> torch.Tensor:
     return torch.where(interior, score, torch.zeros_like(score))
 
 
+def antipodal_candidates(img: torch.Tensor, threshold):
+    """(bright, dark) boolean maps (H, W): the exact early-out test that the
+    CUDA kernel runs before the arc scan.
+
+    Any cyclic arc of 9 of the 16 ring pixels holds an antipodal pair
+    (k, k+8), and float32 rounding is monotone, so min and max commute with
+    the score's subtractions.  With P the largest pair minimum and Q the
+    smallest pair maximum of the raw ring values, a positive bright score
+    needs ``(P - center) - thr > 0``, which (round to nearest, no flush to
+    zero) holds exactly when ``P - center > thr``; a positive dark score
+    needs ``Q - center < -thr``.  A pixel that fails both tests has a raw
+    score of exactly 0.  The condition is necessary, not sufficient:
+    candidates still go through the arc scan.  False on the 3-pixel
+    border."""
+    img = img.to(torch.float32)
+    h, w = img.shape
+    t = float(threshold)
+    p = F.pad(img, (PAD, PAD, PAD, PAD))
+    c = torch.stack([p[PAD + dy:PAD + dy + h, PAD + dx:PAD + dx + w]
+                     for dx, dy in CIRCLE_OFFSETS])
+    bright = torch.minimum(c[:8], c[8:]).amax(0) - img > t
+    dark = torch.maximum(c[:8], c[8:]).amin(0) - img < -t
+    interior = torch.zeros_like(bright)
+    interior[PAD:h - PAD, PAD:w - PAD] = True
+    return bright & interior, dark & interior
+
+
 def nms3x3(score: torch.Tensor) -> torch.Tensor:
     """Keep scores that are the max of their 3x3 neighbourhood (ties kept);
     outside the image counts as 0."""

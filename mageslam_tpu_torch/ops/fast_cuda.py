@@ -3,11 +3,14 @@
 Replaces ``mageslam_tpu/ops/fast_pallas.py`` — ``detect_and_smooth`` (the
 frontend's per-frame stage: NMS'd FAST-9/16 score + 7-tap Gaussian blur
 from one read of the frame) and ``detect`` (score + NMS only).  The kernel
-is a stencil bound by device memory: one float32 read and one or two
-float32 writes per pixel, about 12 bytes; each block stages its input tile
-with a 4-pixel apron in shared memory once and keeps the raw score ring and
-the horizontal blur rows there too, so no intermediate reaches device
-memory (see the source note in the ``.cu`` file).
+is a stencil on the ridge of the H100's roofline: 12 bytes and 75 to 250
+float32 min/max/compare operations per pixel.  Its design — an exact
+antipodal-pair early-out before the arc scan, candidates compacted per warp
+so the scan runs with full lanes, the scan on integer keys with three-input
+min/max, 32x16 tiles staged by 16-byte ``cp.async``, four pixels a thread
+in the blur and the NMS — is set out in the source note of the ``.cu``
+file; ``ops/fast.py`` holds the plain versions, ``antipodal_candidates``
+among them.
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or
 raises); a CPU tensor takes the plain version in ``ops/fast.py``.  There is
@@ -57,7 +60,7 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (Path(cand) / "bin" / "nvcc").exists():
             return str(Path(cand) / "bin" / "nvcc")
@@ -68,24 +71,24 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes()
+def library_path(source: Path = SOURCE) -> Path:
+    key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"libfast_detect_{key}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build(source: Path = SOURCE, verbose: bool = False) -> Path:
     """Compile the kernel library if this source/flag hash is not built."""
     global build_seconds
-    out = library_path()
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp_out = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp_out),
-               str(SOURCE)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp_out),
+               str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -97,20 +100,38 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fast_set_taps.argtypes = [vp, vp]
+    lib.fast_set_taps.restype = ci
+    lib.fast_detect_and_smooth.argtypes = [vp, vp, vp, ci, ci, cf, vp]
+    lib.fast_detect_and_smooth.restype = ci
+    lib.fast_detect.argtypes = [vp, vp, ci, ci, cf, vp]
+    lib.fast_detect.restype = ci
+    # the measuring aid; a source of an earlier commit may lack it
+    if hasattr(lib, "fast_launch_floor"):
+        lib.fast_launch_floor.argtypes = [ci, ci, vp]
+        lib.fast_launch_floor.restype = ci
+    return lib
+
+
+def use_library(lib: ctypes.CDLL) -> None:
+    """Launch from ``lib`` (from ``bind``) instead of the package's own
+    build: how ``tools/bench_fast_kernel.py`` puts the source of another
+    commit behind the same wrappers, to time the two side by side."""
+    global _lib
+    with _lock:
+        _lib = lib
+        _taps_loaded.clear()   # constant memory belongs to a library
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.fast_set_taps.argtypes = [vp, vp]
-            lib.fast_set_taps.restype = ci
-            lib.fast_detect_and_smooth.argtypes = [vp, vp, vp, ci, ci, cf,
-                                                   vp]
-            lib.fast_detect_and_smooth.restype = ci
-            lib.fast_detect.argtypes = [vp, vp, ci, ci, cf, vp]
-            lib.fast_detect.restype = ci
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 
@@ -182,3 +203,15 @@ def detect(img: torch.Tensor, threshold: float) -> torch.Tensor:
         raise RuntimeError(f"fast_detect launch failed: CUDA error {err}")
     _launches["fast_detect"] += 1
     return score
+
+
+def launch_floor(img: torch.Tensor) -> None:
+    """Launch an empty kernel on the grid the FAST kernel uses for ``img``:
+    the measuring reference for what any launch of that shape costs.  It is
+    not a kernel of the port and is not counted."""
+    if img.device.type != "cuda" or img.ndim != 2:
+        raise ValueError("expected an (H, W) CUDA image")
+    h, w = img.shape
+    err = _load().fast_launch_floor(h, w, _stream_ptr(img.device))
+    if err != 0:
+        raise RuntimeError(f"fast_launch_floor failed: CUDA error {err}")

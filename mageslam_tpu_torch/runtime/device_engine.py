@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from mageslam_tpu.config import MageSlamSettings
+from mageslam_tpu_torch.config import MageSlamSettings
 from mageslam_tpu_torch.bow import vocab as bv
 from mageslam_tpu_torch.geometry import se3
 from mageslam_tpu_torch.geometry.camera import CameraCalibration
@@ -131,9 +131,21 @@ def _empty_window(window_size: int, num_fixed: int, max_points: int,
         torch.zeros(LB, dtype=torch.bool, device=dev))
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another.  Without a CUDA device the default raises; there is no
+    quiet step down to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the engine runs on the card by default; pass "
+            'device="cpu" to ask for the CPU')
+    return dev
+
+
 def empty_state(settings: MageSlamSettings, device=None) -> EngineState:
     cap = settings.capacity
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     K, F, L = cap.max_keyframes, cap.max_features, cap.max_map_points
     train_cap = settings.bag_of_words.training_frames * F
     ident = se3.pose_identity(dev)
@@ -307,8 +319,7 @@ class DeviceEngine:
                  device=None, seed: int = 0):
         check_supported(settings)
         self.settings = settings
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.cal = cal.to(self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)

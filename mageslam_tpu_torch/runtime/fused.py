@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mageslam_tpu.config import MageSlamSettings
+from mageslam_tpu_torch.config import MageSlamSettings
 from mageslam_tpu_torch.geometry.camera import CameraCalibration
 from mageslam_tpu_torch.mapping import global_ba
 from mageslam_tpu_torch.runtime import device_engine as de
@@ -41,8 +41,7 @@ class MageSlamTorchFused:
         if settings.runtime.drop_frames_when_busy:
             raise NotImplementedError("drop-frame pacing is not ported")
         self.settings = settings
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = de.resolve_device(device)
         if self.device.type == "cuda":
             # full float32 products (the solvers' normal equations); this
             # is PyTorch's default, stated here because the port relies

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from mageslam_tpu.config import PerCameraSettings
+from mageslam_tpu_torch.config import PerCameraSettings
 from mageslam_tpu_torch.geometry.camera import CameraCalibration, unproject
 from mageslam_tpu_torch.ops import fast, fast_cuda, orb, pyramid, select
 

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from mageslam_tpu.config import MonoMapInitializationSettings
+from mageslam_tpu_torch.config import MonoMapInitializationSettings
 from mageslam_tpu_torch.geometry import se3, triangulation
 from mageslam_tpu_torch.ops import matching, util
 from mageslam_tpu_torch.solvers import essential, homography, sampling

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from mageslam_tpu.config import MageSlamSettings
+from mageslam_tpu_torch.config import MageSlamSettings
 from mageslam_tpu_torch.geometry import se3
 from mageslam_tpu_torch.geometry.camera import CameraCalibration, project
 from mageslam_tpu_torch.mapstore import map_state as ms

@@ -10,6 +10,11 @@ Tolerances: the NMS'd score uses only subtraction, min and max, so the
 kernel must equal the plain version bit for bit.  The kernel's blur adds
 the taps in the plain version's order without FMA contraction; it is held
 to 2e-3, the blur bound of the JAX package's own kernel test.
+
+The kernel works on 32x16 tiles, takes a 16-byte path where the row length
+is a multiple of four and the pointers are aligned, and skips the arc scan
+for pixels that fail an exact antipodal-pair test; the cases below cover
+both sides of each of those choices.
 """
 
 import numpy as np
@@ -18,29 +23,109 @@ import torch
 
 from mageslam_tpu_torch.ops import fast, fast_cuda
 
+BLUR_ATOL = 2e-3
 
-def _cuda_image(shape, seed):
+
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _noise(shape, seed):
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32)
-                           ).cuda()
+    return torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32))
+
+
+def _cuda_image(shape, seed):
+    _need_card()
+    return _noise(shape, seed).cuda()
+
+
+def _assert_matches_plain(img, ksize=7, threshold=10.0):
+    ks, kb = fast_cuda.detect_and_smooth(img, threshold, ksize)
+    kd = fast_cuda.detect(img, threshold)
+    ps, pb = fast.detect_and_smooth(img.contiguous(), threshold, ksize)
+    torch.cuda.synchronize()
+    assert ks.shape == kb.shape == kd.shape == img.shape
+    assert torch.equal(ks, ps) and torch.equal(kd, ps)
+    assert float((kb - pb).abs().max()) <= BLUR_ATOL
+    return ps
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(180, 320), (480, 752), (37, 61)])
+@pytest.mark.parametrize("shape", [
+    (180, 320), (480, 752), (37, 61),
+    (50, 97), (33, 130),        # W % 4 != 0, ragged last tiles
+    (9, 21), (7, 7), (16, 32),  # below or exactly one tile
+    (5, 40),                    # no interior pixel at all
+])
 def test_cuda_kernel_matches_plain(shape):
     img = _cuda_image(shape, 11)
     n0 = fast_cuda.launch_counts()
-    ks, kb = fast_cuda.detect_and_smooth(img, 10.0, 7)
-    kd = fast_cuda.detect(img, 10.0)
-    ps, pb = fast.detect_and_smooth(img, 10.0, 7)
-    torch.cuda.synchronize()
-    assert torch.equal(ks, ps) and torch.equal(kd, ps)
-    assert float((kb - pb).abs().max()) <= 2e-3
+    _assert_matches_plain(img)
     n1 = fast_cuda.launch_counts()
     assert n1["fast_detect_and_smooth"] == n0["fast_detect_and_smooth"] + 1
     assert n1["fast_detect"] == n0["fast_detect"] + 1
+
+
+def _patterns(name):
+    if name == "constant":              # nothing survives the early-out
+        return torch.full((64, 96), 128.0)
+    if name == "checkerboard":          # every pixel is a candidate
+        yy, xx = torch.meshgrid(torch.arange(64), torch.arange(96),
+                                indexing="ij")
+        return ((yy + xx) % 2).to(torch.float32) * 200.0
+    if name == "blocks":                # plateaus: ties in the NMS
+        img = torch.full((80, 128), 20.0)
+        img[16:48, 24:72] = 200.0
+        img[30:66, 90:120] = 120.0
+        return img
+    if name == "sparse":                # a few bright dots on black
+        img = torch.zeros((96, 160))
+        img[10::17, 7::23] = 250.0
+        return img
+    raise ValueError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["constant", "checkerboard", "blocks",
+                                  "sparse"])
+def test_cuda_kernel_on_patterns(name):
+    _need_card()
+    ps = _assert_matches_plain(_patterns(name).cuda())
+    if name == "constant":
+        assert not ps.any()
+    if name in ("blocks", "sparse"):
+        assert ps.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize", [1, 3, 5, 7])
+def test_cuda_kernel_blur_sizes(ksize):
+    _assert_matches_plain(_cuda_image((90, 124), 13), ksize=ksize)
+    _assert_matches_plain(_cuda_image((41, 67), 14), ksize=ksize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.0, 3.5, 40.0])
+def test_cuda_kernel_thresholds(threshold):
+    _assert_matches_plain(_cuda_image((75, 140), 15), threshold=threshold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["rows", "columns", "strided", "offset"])
+def test_cuda_kernel_takes_views(view):
+    """Non-contiguous inputs are copied; a contiguous view at an odd offset
+    is not 16-byte aligned and takes the scalar path."""
+    big = _cuda_image((120, 203), 16)
+    img = {"rows": big[7:103],               # contiguous, W % 4 != 0
+           "columns": big[:, 5:165],         # non-contiguous
+           "strided": big[::2, ::3],         # non-contiguous
+           "offset": big.flatten()[3:3 + 90 * 128].view(90, 128),
+           }[view]
+    if view == "offset":
+        assert img.is_contiguous() and img.data_ptr() % 16 != 0
+    _assert_matches_plain(img)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,13 @@ third-frame confirmation passed.
 (b) Whole drive from an empty state, each engine with its own RNG: both
     initialize, tracked counts within 2, the port's Sim3-aligned ATE within
     1.5x the JAX engine's.
-(c) Guardrails: unsupported settings and the relocalization branch raise.
+(c) Guardrails: unsupported settings and the relocalization branch raise,
+    and so does an entry point built without a device argument where there
+    is no CUDA card.
+
+The engine runs on the card by default, so every construction here asks for
+``device="cpu"``; settings made by the JAX package's helpers reach the port
+through ``convert.settings_from_jax``.
 """
 
 import dataclasses
@@ -44,6 +50,11 @@ torch.set_num_threads(2)
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "torch_orbit60.npz")
 WINDOW = 12
+
+
+def port_settings(name: str):
+    """``fixture_settings(name)`` as the port's own settings object."""
+    return convert.settings_from_jax(fixture_settings(name))
 
 
 def load_fixture():
@@ -80,8 +91,8 @@ def test_carried_state_window(fixture):
     z = fixture
     start = int(z["fast_state_frame"])
     st = convert.engine_state_from_jax(jax_state_namespace(z))
-    eng = de.DeviceEngine(fixture_settings("fast"), fixture_calibration(z),
-                          seed=0)
+    eng = de.DeviceEngine(port_settings("fast"), fixture_calibration(z),
+                          device="cpu", seed=0)
     rows_j = z["fast_rows"]
     rows_t = []
     for i in range(start + 1, start + 1 + WINDOW):
@@ -100,8 +111,8 @@ def test_carried_state_window(fixture):
 
 def test_whole_drive(fixture):
     z = fixture
-    eng = MageSlamTorchFused(fixture_settings("fast"),
-                             fixture_calibration(z), seed=1)
+    eng = MageSlamTorchFused(port_settings("fast"),
+                             fixture_calibration(z), seed=1, device="cpu")
     for i, img in enumerate(z["imgs"]):
         eng.process_frame(img, timestamp=i / 30.0)
     results = eng.flush()
@@ -154,31 +165,46 @@ def test_state_round_trip(fixture):
 ])
 def test_unsupported_settings_raise(change, fixture):
     bag, field, value = change
-    s = fixture_settings("fast")
+    s = port_settings("fast")
     s = s.replace(**{bag: dataclasses.replace(getattr(s, bag),
                                               **{field: value})})
     with pytest.raises(NotImplementedError):
-        MageSlamTorchFused(s, fixture_calibration(fixture))
+        MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
 
 
 def test_multilevel_raises(fixture):
-    s = fixture_settings("fast")
+    s = port_settings("fast")
     cam = s.mono.camera
     cam = dataclasses.replace(cam, features=dataclasses.replace(
         cam.features, num_levels=2))
     s = s.replace(mono=dataclasses.replace(s.mono, camera=cam))
     with pytest.raises(NotImplementedError):
-        MageSlamTorchFused(s, fixture_calibration(fixture))
+        MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
 
 
 def test_relocalization_branch_raises(fixture):
     z = fixture
     st = convert.engine_state_from_jax(jax_state_namespace(z))
-    thr = fixture_settings("fast").track_local_map \
+    thr = port_settings("fast").track_local_map \
         .tracking_lost_count_until_reloc
     st = st._replace(bow_trained=torch.tensor(True),
                      lost_count=torch.tensor(thr - 1, dtype=torch.int32))
-    eng = de.DeviceEngine(fixture_settings("fast"), fixture_calibration(z))
+    eng = de.DeviceEngine(port_settings("fast"), fixture_calibration(z),
+                          device="cpu")
     blank = torch.zeros((180, 320), dtype=torch.uint8)   # nothing to track
     with pytest.raises(NotImplementedError, match="relocalization"):
         eng.step(st, blank, 1.0, 30)
+
+
+@pytest.mark.parametrize("build", [
+    lambda s, cal: MageSlamTorchFused(s, cal),
+    lambda s, cal: de.DeviceEngine(s, cal),
+    lambda s, cal: de.empty_state(s),
+], ids=["MageSlamTorchFused", "DeviceEngine", "empty_state"])
+def test_entry_points_default_to_the_card(build, fixture, monkeypatch):
+    """With no ``device`` argument the entry points ask for the CUDA card;
+    where there is none they raise and name ``device="cpu"`` instead of
+    stepping down to the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build(port_settings("fast"), fixture_calibration(fixture))

@@ -94,3 +94,94 @@ def test_score_patches_and_subpixel_exact():
     np.testing.assert_array_equal(
         fast.subpixel_offsets(torch.as_tensor(ref)).numpy(),
         np.asarray(jfast.subpixel_offsets(jnp.asarray(ref))))
+
+
+# --- the kernel's early-out and score arithmetic, held on the CPU ---------
+
+def _early_out_images():
+    z = np.load(__file__.replace("test_torch_fast.py",
+                                 "data/torch_orbit60.npz"))
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:72, 0:104]
+    plateau = (((yy // 6) + (xx // 6)) % 2 * 160.0 + 30.0).astype(np.float32)
+    plateau[20:40, 30:60] = 255.0            # a flat block: ties everywhere
+    small = rng.integers(0, 4, (40, 56)).astype(np.float32) * 9.0
+    return {
+        "fixture frame": z["imgs"][7].astype(np.float32),
+        "noise": rng.uniform(0, 255, (90, 130)).astype(np.float32),
+        "plateaus and ties": plateau,
+        "differences at the threshold": small,   # |c - center| in {0,9,18,27}
+    }
+
+
+def _kernel_score_arithmetic(img: torch.Tensor, thr: float) -> torch.Tensor:
+    """The raw score as the CUDA kernel forms it: min and max over the raw
+    ring values first (the dark polarity over the negated values), then the
+    centre and the threshold subtracted once each, and only where the
+    antipodal test passed."""
+    h, w = img.shape
+    p = torch.nn.functional.pad(img, (3, 3, 3, 3))
+    c = torch.stack([p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                     for dx, dy in fast.CIRCLE_OFFSETS])
+    bright, dark = fast.antipodal_candidates(img, thr)
+    zero = torch.zeros_like(img)
+    sb = torch.where(bright, fast._arc_score(c, 0) - img - thr, zero)
+    sd = torch.where(dark, fast._arc_score(-c, 0) - (-img) - thr, zero)
+    return torch.maximum(torch.maximum(sb, sd), zero)
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving int32 key of float32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def test_order_key_preserves_float_order():
+    """The arc scan runs on integer keys: their signed order must be the
+    float order, the map its own inverse, and the complement the order
+    reversed (the dark polarity)."""
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(np.concatenate([
+        rng.normal(0, 100, 4000), rng.uniform(0, 255, 4000).round(),
+        [0.0, -0.0, 1e-40, -1e-40, 3.4e38, -3.4e38, np.inf, -np.inf],
+    ]).astype(np.float32))
+    k = _order_key(x)
+    order = torch.argsort(k, stable=True)
+    assert (x[order][1:] >= x[order][:-1]).all()
+    lt = x[:, None] < x[None, :]
+    assert (k[:, None] < k[None, :])[lt].all()
+    assert torch.equal(_order_key(k.view(torch.float32)).view(torch.float32)
+                       .view(torch.int32), x.view(torch.int32))
+    assert torch.equal(~k < ~k[0], k > k[0])
+
+
+@pytest.mark.parametrize("name", ["fixture frame", "noise",
+                                  "plateaus and ties",
+                                  "differences at the threshold"])
+@pytest.mark.parametrize("thr", [0.0, 9.0, 10.0, 27.5])
+def test_antipodal_early_out_is_exact(name, thr):
+    """Every pixel the antipodal-pair test rejects has a plain raw score of
+    exactly 0, per polarity; and the kernel's reordered arithmetic (min/max
+    first, threshold once) gives the plain score bit for bit."""
+    img = torch.as_tensor(_early_out_images()[name])
+    h, w = img.shape
+    bright, dark = fast.antipodal_candidates(img, thr)
+    p = torch.nn.functional.pad(img, (3, 3, 3, 3))
+    circle = torch.stack([p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                          for dx, dy in fast.CIRCLE_OFFSETS])
+    interior = torch.zeros_like(bright)
+    interior[3:h - 3, 3:w - 3] = True
+    arc_b = fast._arc_score(circle - img[None] - thr, 0)
+    arc_d = fast._arc_score(img[None] - circle - thr, 0)
+    assert not (arc_b[interior & ~bright] > 0).any()
+    assert not (arc_d[interior & ~dark] > 0).any()
+    raw = fast.fast_score_map(img, thr)
+    assert not raw[~(bright | dark)].any()
+    assert not (bright | dark)[~interior].any()
+    kernel = _kernel_score_arithmetic(img, thr)
+    assert torch.equal(kernel, raw)
+    assert torch.equal(fast.nms3x3(kernel), fast.detect(img, thr))
+    if name != "differences at the threshold" and thr >= 9.0 and thr < 20:
+        # the test is a filter, not a pass-through
+        assert (bright | dark).any() and raw.any()
+        assert ((bright | dark) & (raw == 0)).any() or name == "noise"

@@ -113,7 +113,8 @@ def test_extract_for_settings_matches_jax():
     fj = jfe.extract_for_settings(jnp.asarray(imgs[1]), cal, s.mono.camera, F)
     ft = frontend.extract_for_settings(torch.as_tensor(imgs[1]),
                                        convert.calibration_from_jax(cal),
-                                       s.mono.camera, F)
+                                       convert.settings_from_jax(s)
+                                       .mono.camera, F)
     np.testing.assert_array_equal(ft.valid.numpy(), np.asarray(fj.valid))
     np.testing.assert_array_equal(ft.response.numpy(),
                                   np.asarray(fj.response))

@@ -1,8 +1,9 @@
-"""The PyTorch port imports torch and never jax.
+"""The PyTorch port imports torch, never jax, and nothing of the JAX package.
 
-``mageslam_tpu_torch`` may read the JAX package's settings dataclasses
-(``mageslam_tpu.config``, pure dataclasses + json) and nothing else of it,
-because the GPU host that runs the port has no JAX installed.
+``mageslam_tpu_torch`` keeps its own copy of what it needs from the JAX
+package ``mageslam_tpu`` (the settings classes, ``config.py``), because the
+GPU host that runs the port has neither JAX nor that package's
+dependencies.
 """
 
 import ast
@@ -18,7 +19,7 @@ PKG = ROOT / "mageslam_tpu_torch"
 def test_import_leaves_jax_unloaded():
     code = ("import sys; import mageslam_tpu_torch, "
             "mageslam_tpu_torch.runtime.fused, mageslam_tpu_torch.convert; "
-            "print('jax' in sys.modules)")
+            "print('jax' in sys.modules or 'mageslam_tpu' in sys.modules)")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -45,6 +46,5 @@ def test_package_sources_import_no_jax():
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax"), (path, mod)
-            if root == "mageslam_tpu":
-                assert mod == "mageslam_tpu.config", (path, mod)
+            assert root not in ("jax", "jaxlib", "flax", "mageslam_tpu"), (
+                path, mod)

@@ -95,7 +95,9 @@ def init_case():
         jnp.float32(si.fundamental_transfer_error_threshold * px),
         jnp.float32(si.min_pixel_spread * px), num_hypotheses=1024,
         sample_weight=jnp.asarray(weight))
-    return si, float(jcal.fx), f0, f1, rj, draws, ej
+    # the port is handed its own settings object with the same values
+    si_port = convert.settings_from_jax(s).mono.map_init
+    return si_port, float(jcal.fx), f0, f1, rj, draws, ej
 
 
 def test_attempt_initialization_with_jax_draws(init_case):
@@ -164,7 +166,8 @@ def test_track_frame_on_entry_fixture():
     cal = convert.calibration_from_jax(default_calibration())
     rt = track.track_frame(convert.map_from_jax(m),
                            convert.features_from_jax(feats),
-                           torch.as_tensor(_np(prior)), 1, cal, s,
+                           torch.as_tensor(_np(prior)), 1, cal,
+                           convert.settings_from_jax(s),
                            max_local_kf=4)
     np.testing.assert_array_equal(rt.assoc.numpy(), _np(rj.assoc))
     np.testing.assert_array_equal(rt.found_mp_mask.numpy(),
@@ -213,7 +216,8 @@ def test_new_points_and_culling_on_carried_map():
                                        s.mapping.new_map_points, fx,
                                        num_candidates=5, scale_factor=1.5)
     rt = new_points.create_new_map_points(mt, new_kf, cal,
-                                          s.mapping.new_map_points, fx,
+                                          convert.settings_from_jax(s)
+                                          .mapping.new_map_points, fx,
                                           num_candidates=5,
                                           scale_factor=1.5)
     _assert_maps_equal(rt.map, rj.map)
