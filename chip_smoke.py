@@ -52,6 +52,30 @@ Phases (each raises on failure, so any failure exits non-zero):
    sweep and the pose-graph solve are also timed at full width, on the
    ring drive's final map (256 keyframe slots).
 
+9. the multi-level drive: the 60-frame orbit at the fixture's 2-level
+   setting (``ml_settings_json`` of ``tests/data/torch_facade.npz``: the
+   reference shape with ``num_levels=2``, ``scale_factor=1.5``); tracked at
+   least the JAX engine's count minus 3, ATE under 1.5x JAX's, and
+   ``fast_detect_and_smooth`` twice per frame (180x320 and 120x213);
+10. the facade: ``process_stereo_frames`` on the fixture's stereo pair
+    (both results TRACKING, at least ``min_init_map_points`` map points,
+    median depth within 5% of JAX's; ``stereo_initialize`` timed), then its
+    30 mono frames through ``process_frame`` with an
+    ``IMUPosePriorProvider`` fed the gyro samples and ``add_sensor_sample``
+    fed the IMU stream (``use_fuser``), a ``Determinator`` recording and
+    the mediator's events counted; tracked at least JAX's count minus 3,
+    gravity within 2 degrees and scale within 5% of JAX's, and
+    ``try_get_volume_of_interest`` returns a box;
+11. a rectified frame: ``extract_for_settings`` with
+    ``undistort_image_pixels`` on the fixture's distorted frame; its
+    keypoints on the card against the CPU's and JAX's, and the feature count
+    of the keypoint-undistortion route beside it.
+
+Phase 4 also runs both entry points on the pyramid levels of the fixture's
+frames (120x213, 80x142, 320x501, 213x334: widths that are not a multiple
+of four take the kernel's unaligned route), timed and bounded like the
+others.
+
 Launch counts are set to 0 just before each drive and read just after.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -70,6 +94,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_orbit60.npz"
 RING_FIXTURE = ROOT / "tests" / "data" / "torch_ring150.npz"
+FACADE_FIXTURE = ROOT / "tests" / "data" / "torch_facade.npz"
+# the pyramid levels of the fixture frames that the kernel cases run on
+LEVEL_CASES = {"120x213 level": "lv_180_f0_l1", "80x142 level": "lv_180_f0_l2",
+               "320x501 level": "lv_480_f0_l1",
+               "213x334 level": "lv_480_f0_l2"}
 BLUR_ATOL = 2e-3
 TIMING_RUNS = 60
 GRAPH_LAUNCHES = 200
@@ -185,8 +214,9 @@ def roofline_bound(fast, img, threshold: float, blur: bool) -> dict:
             "candidate_share": scans / max(interior, 1)}
 
 
-def smoke_images(np, imgs) -> dict:
-    """The timed cases: a fixture frame and uniform noise at both shapes."""
+def smoke_images(np, imgs, levels) -> dict:
+    """The timed cases: a fixture frame and uniform noise at both shapes,
+    and the pyramid levels of the fixture frame at both shapes."""
     rng = np.random.default_rng(7)
     frame = imgs[0].astype(np.float32)
     return {
@@ -194,6 +224,7 @@ def smoke_images(np, imgs) -> dict:
         "180x320 noise": rng.uniform(0, 255, (180, 320)).astype(np.float32),
         "480x752 frame": np.tile(frame, (3, 3))[:480, :752].copy(),
         "480x752 noise": rng.uniform(0, 255, (480, 752)).astype(np.float32),
+        **{label: levels[key] for label, key in LEVEL_CASES.items()},
     }
 
 
@@ -215,7 +246,7 @@ def check_against_plain(torch, fast, fast_cuda, img, ksize: int, label: str):
     return float((kd - ps).abs().max()), err
 
 
-def kernel_phase(torch, np, imgs):
+def kernel_phase(torch, np, imgs, levels):
     from mageslam_tpu_torch.ops import fast, fast_cuda
     rng = np.random.default_rng(11)
     board = (np.indices((64, 96)).sum(0) % 2 * 200.0).astype(np.float32)
@@ -244,7 +275,7 @@ def kernel_phase(torch, np, imgs):
             lambda im: fast.detect(im, THRESHOLD), False),
     }
     report = {}
-    for label, arr in smoke_images(np, imgs).items():
+    for label, arr in smoke_images(np, imgs, levels).items():
         img = torch.as_tensor(arr).cuda()
         errs = check_against_plain(torch, fast, fast_cuda, img, 7, label)
         worst = [max(a, b) for a, b in zip(worst, errs)]
@@ -441,10 +472,10 @@ def summary(ms) -> str:
             f"max {ms[-1]:.1f} ms")
 
 
-def decode_frames(np, z):
-    """The ring fixture stores each image row as its difference from the
-    row above (mod 256)."""
-    return np.cumsum(z["imgs_dy"], axis=1, dtype=np.uint8)
+def decode_frames(np, dy):
+    """Frames stored as each image row's difference from the row above
+    (mod 256), as the ring and facade fixtures store them."""
+    return np.cumsum(dy, axis=1, dtype=np.uint8)
 
 
 def seam_covisibility(np, eng, num_frames: int) -> int:
@@ -467,7 +498,7 @@ def ring_phase(torch, np, z):
     from mageslam_tpu_torch.runtime import device_engine as de
 
     name = "ring_ref"
-    imgs, gt = decode_frames(np, z), z["gt_poses"]
+    imgs, gt = decode_frames(np, z["imgs_dy"]), z["gt_poses"]
     n = len(imgs)
     occ0, occ1 = (int(v) for v in z["occlusion"])
     settings = MageSlamSettings.from_json(str(z[f"{name}_settings_json"]))
@@ -712,12 +743,220 @@ def closure_phase(torch, np, z, wide_map):
     full_width_graph_times(torch, wide_map, steps, min_covis)
 
 
+def sim3_ate(np, fossil, codes, gt, tracking_code: int = 2):
+    """ATE of the fossilized poses of the tracked frames."""
+    from mageslam_tpu_torch.io.evaluation import ate_rmse
+    est, ref = [], []
+    for i, c in enumerate(codes):
+        p = fossil.pose_for_frame(i)
+        if c == tracking_code and p is not None:
+            est.append(p)
+            ref.append(gt[i])
+    ate, _, gt_c = ate_rmse(np.asarray(est), np.asarray(ref))
+    return ate, float(np.linalg.norm(gt_c.max(0) - gt_c.min(0)))
+
+
+def multilevel_phase(torch, np, z, f):
+    """The orbit at two pyramid levels: every frame runs the kernel on its
+    180x320 image and on the 120x213 level."""
+    from mageslam_tpu_torch import MageSlamSettings
+    from mageslam_tpu_torch.ops import fast_cuda
+
+    settings = MageSlamSettings.from_json(str(f["ml_settings_json"]))
+    eng, _ = make_engine(settings, z)
+    imgs = z["imgs"]
+    n = len(imgs)
+    fast_cuda.reset_launch_counts()
+    stamps = []
+    for i, img in enumerate(imgs):
+        eng.process_frame(img, timestamp=i / 30.0)
+        stamps.append(time.perf_counter())
+    eng.flush()
+    syncs = eng.host_syncs
+    fossil = eng.fossilize()
+    torch.cuda.synchronize()
+    launches = fast_cuda.launch_counts()
+    by_shape = fast_cuda.launch_counts_by_shape()
+    codes = [int(eng.output_row(i)[0]) for i in range(n)]
+    tracked = codes.count(2)
+    want = int(f["ml_tracked"])
+    if tracked < want - 3:
+        raise AssertionError(f"multi-level: tracked {tracked} < JAX {want} "
+                             "- 3")
+    name = "fast_detect_and_smooth"
+    if launches[name] != 2 * n or by_shape.get((name, 120, 213)) != n:
+        raise AssertionError(f"multi-level: launches {by_shape} for {n} "
+                             "frames at two levels")
+    if not np.isfinite(fossil.poses).all():
+        raise AssertionError("multi-level: non-finite pose")
+    ate, extent = sim3_ate(np, fossil, codes, z["gt_poses"])
+    bound = float(f["ml_ate_bound"])
+    if not ate < bound:
+        raise AssertionError(f"multi-level: ATE {ate} >= bound {bound}")
+    steady = (n - 21) / (stamps[-1] - stamps[19])
+    print(f"[multi-level] 2 levels at scale 1.5: tracked {tracked}/{n} (JAX "
+          f"CPU {want}), keyframes {eng.num_keyframes}, map points "
+          f"{eng.num_map_points}, ATE {ate:.5f} (bound 1.5 x JAX "
+          f"{float(f['ml_ate']):.5f} = {bound:.5f}, extent {extent:.3f}), "
+          f"steady frames/s over frames 20-59 {steady:.2f}, host syncs/frame "
+          f"{syncs / n:.2f} (+1 output-row read), kernel launches "
+          f"{launches[name] / n:.0f} per frame ({by_shape})", flush=True)
+    return launches
+
+
+def facade_phase(torch, np, f):
+    """Stereo bootstrap, then mono tracking with the IMU prior, the fuser,
+    the mediator and a determinism recording; the volume of interest."""
+    from mageslam_tpu_torch import MageSlamSettings
+    from mageslam_tpu_torch.fuser.samples import SensorSample
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.runtime.fused import MageSlamTorchFused
+    from mageslam_tpu_torch.tracking import stereo
+    from mageslam_tpu_torch.tracking.pose_priors import IMUPosePriorProvider
+    from mageslam_tpu_torch.utils.determinism import Determinator
+    from mageslam_tpu_torch.utils import mediator as med
+
+    settings = MageSlamSettings.from_json(str(f["st_settings_json"]))
+    prov = IMUPosePriorProvider()
+    det = Determinator()
+    eng = MageSlamTorchFused(settings, calibration(f, "st_cal"), seed=1,
+                             pose_prior_provider=prov, determinator=det)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"facade built on {eng.device}, not the card")
+    events = {}
+    for kind in (med.AnalysisCompleted, med.PoseRefined, med.TrackingLost):
+        events[kind.__name__] = 0
+        eng.mediator.subscribe(kind, lambda e, k=kind.__name__:
+                               events.__setitem__(k, events[k] + 1))
+    pair = decode_frames(np, f["st_pair_dy"])
+    mono = decode_frames(np, f["st_mono_dy"])
+    extr = f["st_extrinsics"]
+    init = stereo.stereo_initialize = SyncedTimer(torch,
+                                                  stereo.stereo_initialize)
+    fast_cuda.reset_launch_counts()
+    (r1, r2), t_pair = timed(torch, lambda: eng.process_stereo_frames(
+        pair[0], pair[1], extr, timestamp=0.0))
+    states = [r1.state.value, r2.state.value]
+    if states != ["tracking", "tracking"]:
+        raise AssertionError(f"facade: stereo results {states}")
+    m = eng.map_state
+    pts = m.mp_pos[m.mp_valid].cpu().numpy()
+    depth, want_depth = float(np.median(pts[:, 2])), \
+        float(f["st_median_depth"])
+    if len(pts) < settings.stereo.map_init.min_init_map_points:
+        raise AssertionError(f"facade: {len(pts)} map points")
+    if abs(depth / want_depth - 1.0) > 0.05:
+        raise AssertionError(f"facade: median depth {depth} vs JAX "
+                             f"{want_depth}")
+    stream, ts = f["st_imu"], f["st_ts"]
+    fed, stamps = 0, []
+    for i, img in enumerate(mono):
+        while fed < len(stream) and stream[fed, 0] <= ts[i] + 1e-9:
+            t, ax, ay, az, wx, wy, wz = stream[fed]
+            eng.add_sensor_sample(SensorSample.accel(t, (ax, ay, az)))
+            eng.add_sensor_sample(SensorSample.gyro(t, (wx, wy, wz)))
+            prov.add_sample(t, (wx, wy, wz))
+            fed += 1
+        eng.process_frame(img, timestamp=float(ts[i]))
+        stamps.append(time.perf_counter())
+    results = eng.flush()
+    voi, t_voi = timed(torch, eng.try_get_volume_of_interest)
+    launches = fast_cuda.launch_counts()
+    n = len(mono)
+    tracked = sum(results[i + 1].state.value == "tracking" for i in range(n))
+    if tracked < int(f["st_tracked"]) - 3:
+        raise AssertionError(f"facade: tracked {tracked} < JAX "
+                             f"{int(f['st_tracked'])} - 3")
+    g, scale = eng.get_gravity_direction(), eng.get_scale()
+    if g is None or scale is None:
+        raise AssertionError("facade: the fuser did not converge")
+    angle = float(np.degrees(np.arccos(np.clip(
+        np.dot(g, f["st_gravity"]), -1.0, 1.0))))
+    if angle > 2.0 or abs(scale / float(f["st_scale"]) - 1.0) > 0.05:
+        raise AssertionError(f"facade: gravity {g} ({angle:.3f} deg off), "
+                             f"scale {scale} vs JAX {float(f['st_scale'])}")
+    if voi is None or not (voi.max_corner > voi.min_corner).all():
+        raise AssertionError(f"facade: volume of interest {voi}")
+    if launches["fast_detect_and_smooth"] != 2 + n:
+        raise AssertionError(f"facade: launches {launches} for a pair and "
+                             f"{n} frames")
+    poses = [results[i + 1].pose for i in range(n)
+             if results[i + 1].pose is not None]
+    if not np.isfinite(np.stack(poses)).all():
+        raise AssertionError("facade: non-finite pose")
+    steady = (n - 11) / (stamps[-1] - stamps[9])
+    (t_init, _), = init.calls
+    print(f"[facade] stereo pair: {states}, poses {r1.pose.round(6).tolist()}"
+          f" / {r2.pose.round(6).tolist()}; {len(pts)} map points (JAX "
+          f"{int(f['st_map_points'])}), median depth {depth:.4f} (JAX "
+          f"{want_depth:.4f}); process_stereo_frames {t_pair:.1f} ms, of it "
+          f"stereo_initialize {t_init:.1f} ms "
+          f"({4 * settings.stereo.map_init.bundle_adjust.num_steps + 4} LM "
+          f"steps)", flush=True)
+    print(f"[facade] mono: tracked {tracked}/{n} (JAX "
+          f"{int(f['st_tracked'])}), steady frames/s over frames 10-{n - 1} "
+          f"{steady:.2f}; gravity {np.round(g, 5).tolist()} (JAX "
+          f"{np.round(f['st_gravity'], 5).tolist()}, {angle:.4f} deg apart), "
+          f"scale {scale:.5f} (JAX {float(f['st_scale']):.5f}); volume of "
+          f"interest {np.round(voi.min_corner, 4).tolist()} - "
+          f"{np.round(voi.max_corner, 4).tolist()} (JAX "
+          f"{np.round(f['st_voi'], 4).tolist()}) in {t_voi:.1f} ms; events "
+          f"{events}; determinism streams {len(det.streams)} x "
+          f"{len(det.streams['FusedEngine'])}; launches {launches}",
+          flush=True)
+    return launches
+
+
+def rectified_phase(torch, np, f):
+    """``undistort_image_pixels`` through ``extract_for_settings``: the
+    rectified frame's keypoints on the card against the CPU's (the plain
+    versions) and JAX's."""
+    import dataclasses as dc
+    from mageslam_tpu_torch import MageSlamSettings
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.tracking.frontend import extract_for_settings
+
+    settings = MageSlamSettings.from_json(str(f["st_settings_json"]))
+    F = settings.capacity.max_features
+    rect_cam = dc.replace(settings.mono.camera, undistort_image_pixels=True)
+    cal = calibration(f, "ud_cal")
+    img = torch.as_tensor(f["ud_img"]).to(torch.float32)
+    fast_cuda.reset_launch_counts()
+    fg = extract_for_settings(img.cuda(), cal.to("cuda"), rect_cam, F)
+    torch.cuda.synchronize()
+    launches = fast_cuda.launch_counts()
+    if launches["fast_detect_and_smooth"] != 1:
+        raise AssertionError(f"rectified: launches {launches}")
+    fc = extract_for_settings(img, cal, rect_cam, F)
+    fk = extract_for_settings(img.cuda(), cal.to("cuda"),
+                              settings.mono.camera, F)
+
+    def keys(uv, valid):
+        return {(round(float(u), 2), round(float(v), 2))
+                for (u, v), ok in zip(uv.tolist(), valid.tolist()) if ok}
+
+    kg = keys(fg.uv.cpu(), fg.valid.cpu())
+    kc = keys(fc.uv, fc.valid)
+    kj = keys(f["ud_feat/uv"], f["ud_feat/valid"])
+    if len(kg & kc) < 0.99 * len(kc) or len(kg & kj) < 0.99 * len(kj):
+        raise AssertionError(f"rectified: {len(kg)} keypoints on the card, "
+                             f"{len(kg & kc)} of the CPU's {len(kc)}, "
+                             f"{len(kg & kj)} of JAX's {len(kj)}")
+    print(f"[rectified] {len(kg)} features on the rectified frame ("
+          f"{len(kg & kc)} of the CPU's {len(kc)} at the same place, "
+          f"{len(kg & kj)} of JAX's {len(kj)}); the keypoint-undistortion "
+          f"route on the same card: {int(fk.valid.sum())} features; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    for path in (FIXTURE, RING_FIXTURE):
+    for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE):
         if not path.exists():
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 3
@@ -748,19 +987,26 @@ def main() -> int:
           flush=True)
 
     z = np.load(FIXTURE)
-    report, worst_err = kernel_phase(torch, np, z["imgs"])
+    facade = np.load(FACADE_FIXTURE)
+    report, worst_err = kernel_phase(torch, np, z["imgs"], facade)
     ring = np.load(RING_FIXTURE)
     launches = {"fast_detect_and_smooth": engine_phase(torch, np, z),
                 "fast_detect": wide_blur_phase(torch, np, z)}
-    # each drive counts from 0: the 60-frame drive's launches and the ring's
+    # each drive counts from 0: the orbit's launches, then the multi-level
+    # orbit's, the facade's, the rectified frame's and the ring's
+    for counts in (multilevel_phase(torch, np, z, facade),
+                   facade_phase(torch, np, facade),
+                   rectified_phase(torch, np, facade)):
+        for name in launches:
+            launches[name] += counts[name]
     ring_launches, ring_map = ring_phase(torch, np, ring)
     launches["fast_detect_and_smooth"] += ring_launches
     closure_phase(torch, np, ring, ring_map)
 
     main_case = report["180x320 frame"]   # the main path's shape and data
     pallas = "mageslam_tpu/ops/fast_pallas.py"
-    replaces = {"fast_detect_and_smooth": f"{pallas}:106",
-                "fast_detect": f"{pallas}:80"}
+    replaces = {"fast_detect_and_smooth": f"{pallas}:108",
+                "fast_detect": f"{pallas}:81"}
     table = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -778,6 +1024,19 @@ def main() -> int:
         "bound_by": main_case[name]["bound_by"],
         # no single PyTorch call computes FAST + NMS (+ blur)
         "library_ms": None,
+        # the same kernel on the pyramid levels
+        "shapes": [{
+            "shape": label.split()[0],
+            "max_abs_err": report[label]["blur_max_abs_err"]
+            if name == "fast_detect_and_smooth" else 0.0,
+            "ms": report[label][name]["ms"],
+            "plain_ms": report[label][name]["plain_ms"],
+            "device_us": report[label][name]["device_us"],
+            "floor_us": report[label]["floor_us"],
+            "bound_ms": 1e-3 * report[label][name]["bound_us"],
+            "bound_us": report[label][name]["bound_us"],
+            "bound_by": report[label][name]["bound_by"],
+        } for label in LEVEL_CASES],
     } for name in ("fast_detect_and_smooth", "fast_detect")]}
     print(f"[cases] {json.dumps(report)}")
     print(smi)

@@ -3,11 +3,13 @@
 The JAX package's containers (``FrameFeatures``, ``MapState``,
 ``PoseHistory``, ``Vocabulary``, ``BAProblem``, ``LocalBAWindow``,
 ``EngineState``, ``BowDatabase``, ``LoopDetection``, ``SpanningTree``,
-``EssentialGraph``, ``PoseGraphProblem``) have counterparts here with the same field names, shapes
-and dtypes, so conversion is field by field.  The JAX side is read as
-numpy arrays (``np.asarray`` of each leaf — this module never imports
-jax); 32-bit unsigned descriptor words are viewed as ``int32`` with the
-same bits.
+``EssentialGraph``, ``PoseGraphProblem``, ``StereoInitResult``) have
+counterparts here with the same field names, shapes and dtypes, so
+conversion is field by field.  ``VolumeOfInterest`` holds numpy arrays on
+both sides, and the fuser is host state (``fuser_from_jax``).  The JAX side
+is read as numpy arrays (``np.asarray`` of each leaf — this module never
+imports jax); 32-bit unsigned descriptor words are viewed as ``int32``
+with the same bits.
 
 Settings cross as JSON text (``settings_from_jax``), so no class of the
 JAX package is touched here.
@@ -30,6 +32,7 @@ import torch
 from mageslam_tpu_torch.bow.database import BowDatabase
 from mageslam_tpu_torch.bow.vocab import Vocabulary
 from mageslam_tpu_torch.config import MageSlamSettings
+from mageslam_tpu_torch.fuser.imu import Fuser, FuserMode, UnfilteredIMU
 from mageslam_tpu_torch.geometry.camera import CameraCalibration
 from mageslam_tpu_torch.loop.closure import LoopDetection
 from mageslam_tpu_torch.mapping.local_ba import LocalBAWindow
@@ -37,10 +40,12 @@ from mageslam_tpu_torch.mapstore.map_state import MapState
 from mageslam_tpu_torch.mapstore.pose_history import PoseHistory
 from mageslam_tpu_torch.mapstore.spanning_tree import (EssentialGraph,
                                                        SpanningTree)
+from mageslam_tpu_torch.mapstore.volume_of_interest import VolumeOfInterest
 from mageslam_tpu_torch.runtime.device_engine import EngineState
-from mageslam_tpu_torch.solvers.bundle_adjust import BAProblem, check_tethers
+from mageslam_tpu_torch.solvers.bundle_adjust import BAProblem
 from mageslam_tpu_torch.solvers.pose_graph import PoseGraphProblem
 from mageslam_tpu_torch.tracking.frontend import FrameFeatures
+from mageslam_tpu_torch.tracking.stereo import StereoInitResult
 
 # fields that hold a nested container, by name
 _NESTED = {
@@ -76,10 +81,7 @@ def from_jax(cls, obj, device=None):
         sub = _NESTED.get(name)
         vals[name] = (from_jax(sub, leaf, device) if sub is not None
                       else tensor_from_numpy(leaf, device))
-    out = cls(**vals)
-    if cls is BAProblem:
-        check_tethers(out)
-    return out
+    return cls(**vals)
 
 
 def features_from_jax(f, device=None) -> FrameFeatures:
@@ -124,6 +126,33 @@ def essential_graph_from_jax(eg, device=None) -> EssentialGraph:
 
 def pose_graph_problem_from_jax(p, device=None) -> PoseGraphProblem:
     return from_jax(PoseGraphProblem, p, device)
+
+
+def stereo_result_from_jax(r, device=None) -> StereoInitResult:
+    return from_jax(StereoInitResult, r, device)
+
+
+def volume_of_interest_from_jax(v) -> VolumeOfInterest:
+    return VolumeOfInterest(np.asarray(v.min_corner),
+                            np.asarray(v.max_corner), bool(v.valid))
+
+
+def fuser_from_jax(f) -> Fuser:
+    """A port ``Fuser`` in the state of a JAX-package one: mode, gravity
+    and scale accumulators, the integrator and the last visual pose."""
+    out = Fuser(f._grav_needed, f._scale_needed)
+    out.mode = FuserMode(int(f.mode))
+    out._grav_accum = np.array(f._grav_accum, copy=True)
+    out._grav_count = int(f._grav_count)
+    out._scale_num, out._scale_den = float(f._scale_num), \
+        float(f._scale_den)
+    out._scale_windows = int(f._scale_windows)
+    out._imu = UnfilteredIMU(np.array(f._imu.q_wb, copy=True),
+                             np.array(f._imu.v, copy=True),
+                             np.array(f._imu.gravity_w, copy=True))
+    last = f._last_visual_pose
+    out._last_visual_pose = None if last is None else np.array(last)
+    return out
 
 
 def engine_state_from_jax(st, device=None) -> EngineState:

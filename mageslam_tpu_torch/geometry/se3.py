@@ -207,3 +207,27 @@ def constant_velocity_extrapolate(prev: torch.Tensor, cur: torch.Tensor,
     omega = so3_log(pose_q(delta)) * steps
     t = pose_t(delta) * steps
     return pose_compose(make_pose(so3_exp(omega), t), cur)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, alpha) -> torch.Tensor:
+    """Spherical interpolation of unit quaternions (linear for tiny
+    angles)."""
+    q0 = quat_normalize(q0)
+    q1 = quat_normalize(q1)
+    d = torch.sum(q0 * q1, -1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.arccos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    lin = (1 - alpha) * q0 + alpha * q1
+    w0 = torch.sin((1 - alpha) * theta) / torch.clamp(sin_theta, min=_EPS)
+    w1 = torch.sin(alpha * theta) / torch.clamp(sin_theta, min=_EPS)
+    out = torch.where(sin_theta < 1e-6, lin, w0 * q0 + w1 * q1)
+    return quat_normalize(out)
+
+
+def pose_interpolate(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
+    """Slerp the rotation, lerp the translation."""
+    q = slerp(pose_q(a), pose_q(b), alpha)
+    t = (1 - alpha) * pose_t(a) + alpha * pose_t(b)
+    return make_pose(q, t)

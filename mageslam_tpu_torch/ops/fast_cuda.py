@@ -43,8 +43,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_KSIZE = 2 * fast.PAD + 1
 
 # kernel launches per entry point since the last reset (a run shows that
-# its frames went through the kernel by reading these)
+# its frames went through the kernel by reading these), and per entry
+# point and image shape
 _launches = {"fast_detect_and_smooth": 0, "fast_detect": 0}
+_launches_by_shape: dict = {}
 _lock = threading.Lock()
 _lib = None
 _taps_loaded: dict = {}
@@ -54,10 +56,22 @@ build_seconds = None   # wall time of the build in this process, if any
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+    _launches_by_shape.clear()
 
 
 def launch_counts() -> dict:
     return dict(_launches)
+
+
+def launch_counts_by_shape() -> dict:
+    """{(entry point, h, w): launches} since the last reset."""
+    return dict(_launches_by_shape)
+
+
+def _count(name: str, img: torch.Tensor) -> None:
+    _launches[name] += 1
+    key = (name, *img.shape)
+    _launches_by_shape[key] = _launches_by_shape.get(key, 0) + 1
 
 
 def nvcc_path() -> str:
@@ -183,7 +197,7 @@ def detect_and_smooth(img: torch.Tensor, threshold: float, ksize: int = 7):
     if err != 0:
         raise RuntimeError(f"fast_detect_and_smooth launch failed: "
                            f"CUDA error {err}")
-    _launches["fast_detect_and_smooth"] += 1
+    _count("fast_detect_and_smooth", img)
     return score, smooth
 
 
@@ -201,7 +215,7 @@ def detect(img: torch.Tensor, threshold: float) -> torch.Tensor:
                           float(threshold), _stream_ptr(img.device))
     if err != 0:
         raise RuntimeError(f"fast_detect launch failed: CUDA error {err}")
-    _launches["fast_detect"] += 1
+    _count("fast_detect", img)
     return score
 
 

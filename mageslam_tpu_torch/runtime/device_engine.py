@@ -21,14 +21,22 @@ Work the JAX step runs masked and discards is skipped here where the state
 comes out the same: a loop detection whose candidates all fail their gates
 costs one host read instead of eight relocalizations.
 
-Not ported yet: multi-level pyramids, pixel undistortion, stereo / IMU and
-the parallel layer (construction raises for each, by name).
+Every setting of the fused engine runs except the parallel layer
+(distributed or trajectory-sharded global BA), for which construction
+raises by name.  Multi-level pyramids run through the frontend and the
+tracking gates; stereo bootstrap, the IMU fuser, pose-prior providers and
+drop-frame pacing live in the facade (``runtime/fused.py``); an external
+pose prior enters ``step`` as ``ext_prior``.  ``undistort_image_pixels``
+is accepted and, as in the JAX engine's step, does not change the step:
+it calls ``extract_features``, which undistorts keypoints; only
+``extract_for_settings`` (stereo initialization) rectifies the image.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mageslam_tpu_torch.config import MageSlamSettings
@@ -303,19 +311,14 @@ def _map_fingerprints(m: ms.MapState):
 
 
 def check_supported(settings: MageSlamSettings) -> None:
-    """Raise ``NotImplementedError`` for settings this port does not run."""
-    s = settings
-    if int(s.mono.camera.features.num_levels) > 1:
-        raise NotImplementedError("num_levels > 1 is not ported yet")
-    if s.mono.camera.undistort_image_pixels:
-        raise NotImplementedError("undistort_image_pixels is not ported yet")
-    if s.stereo.use_stereo_init or s.fuser.use_fuser:
-        raise NotImplementedError("stereo / IMU fuser paths are not ported")
-    if s.parallel.use_distributed_global_ba \
-            or s.parallel.use_trajectory_sharding:
-        raise NotImplementedError(
-            "distributed / trajectory-sharded global BA (the parallel "
-            "layer) is not ported yet")
+    """Raise ``NotImplementedError`` for settings this port does not run:
+    only the parallel layer's."""
+    p = settings.parallel
+    for name in ("use_distributed_global_ba", "use_trajectory_sharding"):
+        if getattr(p, name):
+            raise NotImplementedError(
+                f"{name}: distributed / trajectory-sharded global BA (the "
+                "parallel layer) is not ported yet")
 
 
 class DeviceEngine:
@@ -667,7 +670,8 @@ class DeviceEngine:
         res = bundle_adjust_impl(
             win.problem, self._f32c(s.bundle_adjust.huber_width * self.px),
             self._f32c(s.bundle_adjust.max_outlier_error * self.px),
-            num_steps=self.ba_per_run, lam0=st.lam)
+            num_steps=self.ba_per_run, lam0=st.lam,
+            pose_tethers=False)  # the window's one tether slot is unused
         lam = torch.clamp(res.lam, min=s.mapping.min_lambda) \
             if s.mapping.persist_lambda else st.lam
         win = win._replace(problem=win.problem._replace(
@@ -717,14 +721,17 @@ class DeviceEngine:
         return st
 
     # ------------------------------------------------------------------
-    def track_branch(self, st: EngineState, feats: FrameFeatures, ts, fid):
+    def track_branch(self, st: EngineState, feats: FrameFeatures, ts, fid,
+                     ext_prior=None):
         s = self.settings
         cap = s.capacity
         cal = self.cal
         dev = self.device
         px = self.px
-        prior = se3.constant_velocity_extrapolate(st.pose_prev2,
-                                                  st.pose_prev)
+        # an external provider's prior (IMU, host strategy) when given,
+        # else the built-in constant-velocity model
+        prior = ext_prior if ext_prior is not None else \
+            se3.constant_velocity_extrapolate(st.pose_prev2, st.pose_prev)
         tres = track.track_frame(st.map, feats, prior, st.last_kf, cal, s,
                                  max_local_kf=cap.local_ba_keyframes)
         mi = s.mono.map_init
@@ -864,14 +871,29 @@ class DeviceEngine:
         return st, True, t2.pose
 
     # ------------------------------------------------------------------
-    def step(self, st: EngineState, img, ts, fid):
-        """One frame: returns (state, (OUT_WIDTH,) float32 output row)."""
+    def _upload_prior(self, ext_prior) -> torch.Tensor:
+        """The (7,) prior on the device: one copy, from pinned memory on a
+        card, queued on the stream (no host wait)."""
+        if torch.is_tensor(ext_prior):
+            return ext_prior.to(self.device, torch.float32)
+        host = torch.as_tensor(np.asarray(ext_prior, np.float32))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host
+
+    def step(self, st: EngineState, img, ts, fid, ext_prior=None):
+        """One frame: returns (state, (OUT_WIDTH,) float32 output row).
+        ``ext_prior`` (7,) replaces the constant-velocity pose prior of this
+        frame's tracking."""
         s = self.settings
         fe = s.mono.camera.features
         img = torch.as_tensor(img)
         if img.device != self.device:
             img = img.to(self.device)
+        if ext_prior is not None:
+            ext_prior = self._upload_prior(ext_prior)
         gray = pyramid.to_gray_f32(img)
+        # undistort_image_pixels is not read here, as in the JAX step
         feats = extract_features(
             gray, self.cal, float(fe.fast_threshold), max_features=self.F,
             num_levels=int(fe.num_levels),
@@ -889,7 +911,8 @@ class DeviceEngine:
         fp_ba = _hash_fold(st.lam, st.ba_steps_left,
                            st.ba_active.to(torch.int32))
         if initialized:
-            st, code, pose, n_inl = self.track_branch(st, feats, ts, fid)
+            st, code, pose, n_inl = self.track_branch(st, feats, ts, fid,
+                                                      ext_prior)
         else:
             st, code, pose, n_inl = self.init_branch(st, feats, ts, fid)
         _, _, fp_assoc_post = _map_fingerprints(st.map)

@@ -4,12 +4,16 @@ Port of ``mageslam_tpu/solvers/bundle_adjust.py``.  The problem is the
 same landmark-major fixed-shape table: observations live in an (L, M)
 slot grid, landmark blocks are eliminated in closed form, and the camera
 system is assembled through a one-hot routing matrix and solved densely.
-Jacobians are analytic, tethers included: the JAX package differentiates
-its tether residual with ``jax.jacfwd``; here the DISTANCE tether's
-Jacobian is written out (the residual |C_i - C_j| - d depends only on the
-translation part of each left update, through -R^T).  SIX_DOF and
-EXTRINSIC tethers belong to stereo and trajectory sharding, which are not
-ported: ``check_tethers`` rejects them.
+Reprojection Jacobians are analytic.  The JAX package differentiates its
+tether residual with ``jax.jacfwd``; here the DISTANCE tether's Jacobian is
+written out (the residual |C_i - C_j| - d depends only on the translation
+part of each left update, through -R^T), and so are the SIX_DOF /
+EXTRINSIC tethers' (``_pose_tether_jacobians``: SO(3) left and right
+Jacobians; forward-mode autograd gave the same blocks but went through
+PyTorch's Python decompositions, seconds on a first call).  They cost a
+few dozen small launches per LM step, so a caller whose problem holds no
+pose tether by construction (the engine's local window) says so with
+``pose_tethers=False``.
 
 Solves use ``torch.linalg.solve_ex``, which reports singularity in a
 tensor instead of raising, so an LM step never synchronises with the host.
@@ -61,15 +65,6 @@ def empty_tethers(t: int = 0, device=None) -> dict:
         tether_dist=torch.zeros(t, dtype=torch.float32, device=device),
         tether_weight=torch.zeros(t, dtype=torch.float32, device=device),
     )
-
-
-def check_tethers(problem: BAProblem) -> None:
-    """Raise for tether types whose Jacobians are not ported."""
-    if problem.tether_type.numel() and bool(
-            (problem.tether_type >= TETHER_SIX_DOF).any()):
-        raise NotImplementedError(
-            "SIX_DOF / EXTRINSIC tethers come with stereo and trajectory "
-            "sharding, which are not ported yet")
 
 
 class BAResult(NamedTuple):
@@ -155,10 +150,45 @@ def _inv3x3(V: torch.Tensor) -> torch.Tensor:
     return inv.reshape(V.shape)
 
 
+def _pose_tether_jacobians(pi, pj, target_pose):
+    """(T, 6, 12) d r / d [xi_i, xi_j] at xi = 0 of the SIX_DOF / EXTRINSIC
+    residual r = [log R_E, t_E], E = P_i P_j^-1 T^-1, under the left
+    updates P <- (Exp w, rho) P.  Left on P_i, ``log`` moves by the inverse
+    left Jacobian; on P_j the update reaches R_E from the right as
+    Exp(-R_T w_j), through the inverse right Jacobian."""
+    E = se3.pose_compose(se3.pose_compose(pi, se3.pose_inverse(pj)),
+                         se3.pose_inverse(target_pose))
+    phi = se3.so3_log(se3.pose_q(E))
+    t_e = se3.pose_t(E)
+    Ri = se3.quat_to_mat(se3.pose_q(pi))
+    Rj = se3.quat_to_mat(se3.pose_q(pj))
+    Rt = se3.quat_to_mat(se3.pose_q(target_pose))
+    M = Ri @ Rj.transpose(-1, -2)
+    c = -(Rt.transpose(-1, -2) @ se3.pose_t(target_pose)[..., None])[..., 0]
+    th2 = torch.sum(phi * phi, -1)[..., None, None]
+    th = torch.sqrt(th2)
+    # 1/th^2 - (1 + cos th) / (2 th sin th), its series below 1e-3 rad
+    a = torch.where(
+        th2 < 1e-6, 1.0 / 12.0 + th2 / 720.0,
+        1.0 / torch.clamp(th2, min=1e-12) - (1.0 + torch.cos(th))
+        / torch.clamp(2.0 * th * torch.sin(th), min=1e-12))
+    P = se3.hat(phi)
+    P2 = P @ P
+    eye = torch.eye(3, dtype=pi.dtype, device=pi.device).expand_as(P)
+    jl_inv = eye - 0.5 * P + a * P2
+    jr_inv = eye + 0.5 * P + a * P2
+    zero = torch.zeros_like(P)
+    return torch.cat([
+        torch.cat([jl_inv, zero, -jr_inv @ Rt, zero], -1),
+        torch.cat([-se3.hat(t_e), eye, M @ se3.hat(c), -M], -1)], -2)
+
+
 def tether_normal_contrib(kf_poses, tether_i, tether_j, tether_type,
-                          tether_pose, tether_dist, tether_weight):
+                          tether_pose, tether_dist, tether_weight,
+                          pose_tethers: bool = True):
     """(S_t (K+1, K+1, 6, 6), b_t (K+1, 6)); row K collects disabled
-    slots.  Only DISTANCE tethers contribute (see ``check_tethers``)."""
+    slots.  With ``pose_tethers=False`` SIX_DOF / EXTRINSIC slots are
+    taken to be absent and contribute nothing."""
     K = kf_poses.shape[0]
     dev, dt = kf_poses.device, kf_poses.dtype
     S = torch.zeros((K + 1, K + 1, 6, 6), dtype=dt, device=dev)
@@ -188,6 +218,11 @@ def tether_normal_contrib(kf_poses, tether_i, tether_j, tether_type,
     Jj = torch.zeros((T, 6, 6), dtype=dt, device=dev)
     Ji[:, 0] = gi * sw
     Jj[:, 0] = gj * sw
+    if pose_tethers:
+        J6 = _pose_tether_jacobians(pi, pj, tether_pose)
+        six = (tether_type >= TETHER_SIX_DOF)[:, None, None]
+        Ji = torch.where(six, J6[..., :6] * sw[..., None], Ji)
+        Jj = torch.where(six, J6[..., 6:] * sw[..., None], Jj)
     rt = rt * sw
     on = tether_type > 0
     ti = torch.where(on, tether_i, torch.full_like(tether_i, K)).long()
@@ -206,7 +241,7 @@ def tether_normal_contrib(kf_poses, tether_i, tether_j, tether_type,
 
 
 def _build_normal_eq(problem: BAProblem, kf_poses, points, huber_delta,
-                     lam):
+                     lam, pose_tethers: bool = True):
     """One linearization: (S, b, V_inv, W, g_p, kf_safe) with S the damped
     (K+1, K+1, 6, 6) Schur camera system (row K is scratch)."""
     K = kf_poses.shape[0]
@@ -243,7 +278,8 @@ def _build_normal_eq(problem: BAProblem, kf_poses, points, huber_delta,
 
     S, b_t = tether_normal_contrib(
         kf_poses, problem.tether_i, problem.tether_j, problem.tether_type,
-        problem.tether_pose, problem.tether_dist, problem.tether_weight)
+        problem.tether_pose, problem.tether_dist, problem.tether_weight,
+        pose_tethers)
     diag = torch.arange(K + 1, device=S.device)
     S[diag, diag] += U
     b = g_c + b_t
@@ -279,9 +315,12 @@ def _solve_schur(S, b, kf_fixed, lam):
 
 
 def bundle_adjust_impl(problem: BAProblem, huber_delta, max_outlier_error,
-                       num_steps: int = 5, lam0=1e-4) -> BAResult:
+                       num_steps: int = 5, lam0=1e-4,
+                       pose_tethers: bool = True) -> BAResult:
     """num_steps LM iterations with accept/reject and a persisted lambda;
-    returns the inlier mean square error and the outlier observations."""
+    returns the inlier mean square error and the outlier observations.
+    ``pose_tethers=False``: the problem holds no SIX_DOF / EXTRINSIC
+    tether (their Jacobians are then not formed)."""
     dev = problem.points.device
     # huber_delta / max_outlier_error may be Python floats holding float32
     # values: torch applies them as float32 scalars, as JAX does
@@ -290,7 +329,7 @@ def bundle_adjust_impl(problem: BAProblem, huber_delta, max_outlier_error,
     for _ in range(num_steps):
         err0, _ = _error(problem, poses, points, huber_delta)
         S, b, V_inv, W, g_p, kf_safe = _build_normal_eq(
-            problem, poses, points, huber_delta, lam)
+            problem, poses, points, huber_delta, lam, pose_tethers)
         dc = _solve_schur(S, b, problem.kf_fixed, lam)
         dc_pad = torch.cat([dc, dc.new_zeros((1, 6))], 0)
         Wtdc = torch.einsum("lmbc,lmb->lc", W, dc_pad[kf_safe])

@@ -4,7 +4,9 @@ Port of ``mageslam_tpu/tracking/track.py``: local map from the reference
 keyframe's covisibility, candidate gates, compaction to at most
 ``track_candidates`` rows (ranked by local observation count, then slot),
 three widening radius-match rounds, two-stage pose refinement, and the
-reference/anchor keyframes for the pose history.  Tracking draws nothing
+reference/anchor keyframes for the pose history.  With several pyramid
+levels a scale-invariance distance gate joins the candidate gates and the
+search radii widen by the predicted level's scale.  Tracking draws nothing
 at random.
 """
 
@@ -55,6 +57,33 @@ def _in_image(uv, cal):
             & (uv[:, 1] >= 0) & (uv[:, 1] <= cal.height - 1))
 
 
+def scale_gate(mp_pos, mp_max_dist, cam_center, num_levels: int,
+               sf: float) -> torch.Tensor:
+    """Scale-invariance distance gate (IsGoodCandidate): a point created at
+    octave o and distance d is expected visible between
+    ``0.8 * d_max / sf**(levels-1)`` and ``1.25 * d_max``, d_max = d * sf**o;
+    points without scale information (``mp_max_dist <= 0``) pass."""
+    dist = torch.linalg.vector_norm(mp_pos - cam_center, dim=-1)
+    dmax = mp_max_dist * 1.25
+    dmin = mp_max_dist / (sf ** (num_levels - 1)) * 0.8
+    return (mp_max_dist <= 0) | ((dist >= dmin) & (dist <= dmax))
+
+
+def search_radius_scale(pos_c, max_dist_c, cam_center, num_levels: int,
+                        sf: float) -> torch.Tensor:
+    """``sf**level`` of the level each candidate is predicted to be seen
+    at from its distance (1 for points without scale information): a
+    coarse-level keypoint localizes that much worse in level-0 pixels."""
+    dist = torch.linalg.vector_norm(pos_c - cam_center, dim=-1)
+    ratio = max_dist_c / torch.clamp(dist, min=1e-6)
+    oct_pred = torch.clamp(
+        torch.round(torch.log(torch.clamp(ratio, min=1e-6))
+                    / torch.log(torch.tensor(sf, dtype=torch.float32))),
+        0.0, float(num_levels - 1))
+    return torch.where(max_dist_c > 0, sf ** oct_pred,
+                       torch.ones_like(oct_pred))
+
+
 def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
                 cal: CameraCalibration, settings: MageSlamSettings,
                 max_local_kf: int = 16) -> TrackResult:
@@ -64,9 +93,8 @@ def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
     px32 = torch.tensor(1.0, dtype=torch.float32) \
         / torch.tensor(cal.fx, dtype=torch.float32)
     fe = s.mono.camera.features
-    if int(fe.num_levels) > 1:
-        raise NotImplementedError("multi-level tracking gates are not "
-                                  "ported (num_levels > 1)")
+    num_levels = int(fe.num_levels)
+    sf = float(fe.scale_factor)
     last = util.full(last_kf, dev, torch.int32)
 
     mem = ms.member_matrix(m)
@@ -90,6 +118,9 @@ def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
         s.track_local_map.min_degrees_between_current_view_and_map_point_view)
     angle_ok = ~has_normal | (cos_view > cos_min)
     candidates = local_mp & (z_pred > 0) & in_img & angle_ok
+    if num_levels > 1:
+        candidates = candidates & scale_gate(m.mp_pos, m.mp_max_dist,
+                                             cam_center, num_levels, sf)
 
     # compaction: keep the C best-covisible candidates, then back to
     # ascending slot order
@@ -107,15 +138,24 @@ def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
     pos_c = m.mp_pos[cidx]
     desc_c = m.mp_desc[cidx]
     uv_pred_c = uv_pred[cidx]
+    rad_scale = (search_radius_scale(pos_c, m.mp_max_dist[cidx], cam_center,
+                                     num_levels, sf)
+                 if num_levels > 1 else None)
 
     tl = s.track_local_map
     pe = s.pose_estimation
     ham = tl.matcher.max_hamming_distance
 
+    def radius(px: float):
+        # per candidate with several levels, else one Python radius
+        if rad_scale is None:
+            return float(px)
+        return torch.tensor(px, dtype=torch.float32) * rad_scale
+
     def match_round(radius_px):
         idx, dist = matching.radius_match(
             uv_pred_c, desc_c, c_valid, feats.uv, feats.desc, feats.valid,
-            radius=float(radius_px), max_distance=ham,
+            radius=radius(radius_px), max_distance=ham,
             min_difference=tl.matcher.min_hamming_difference)
         return matching.assign_unique(idx, dist)
 
@@ -140,7 +180,7 @@ def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
     candidates2 = c_valid & (z_pred2 > 0) & _in_image(uv_pred2, cal)
     idx2, dist2 = matching.radius_match(
         uv_pred2, desc_c, candidates2, feats.uv, feats.desc, feats.valid,
-        radius=float(tl.match_search_radius), max_distance=ham,
+        radius=radius(tl.match_search_radius), max_distance=ham,
         min_difference=tl.matcher.min_hamming_difference)
     idx2 = matching.assign_unique(idx2, dist2)
     keep1 = matched & res1.inliers

@@ -58,6 +58,8 @@ def _assert_matches_plain(img, ksize=7, threshold=10.0):
     (50, 97), (33, 130),        # W % 4 != 0, ragged last tiles
     (9, 21), (7, 7), (16, 32),  # below or exactly one tile
     (5, 40),                    # no interior pixel at all
+    (120, 213), (80, 142),      # pyramid levels of 180x320 at scale 1.5
+    (320, 501), (213, 334),     # and of 480x752
 ])
 def test_cuda_kernel_matches_plain(shape):
     img = _cuda_image(shape, 11)
@@ -133,3 +135,31 @@ def test_cuda_wrapper_rejects_a_batch():
     img = _cuda_image((2, 180, 320), 12)
     with pytest.raises(ValueError):
         fast_cuda.detect_and_smooth(img, 10.0, 7)
+
+
+@pytest.mark.cuda
+def test_cuda_multilevel_frontend_matches_cpu():
+    """Three pyramid levels of a textured frame on the card: one launch per
+    level, and the keypoints, responses and levels of the CPU's plain run."""
+    _need_card()
+    from mageslam_tpu_torch.geometry.camera import CameraCalibration
+    from mageslam_tpu_torch.tracking import frontend
+    yy, xx = np.mgrid[0:180, 0:320]
+    rng = np.random.default_rng(5)
+    img = (128 + 60 * np.sin(xx / 7.0) * np.cos(yy / 5.0)
+           + rng.normal(0, 8, (180, 320))).astype(np.float32)
+    cal = CameraCalibration.pinhole(272.0, 272.0, 160.0, 90.0)
+    kw = dict(max_features=512, num_levels=3, scale_factor=1.5)
+    fc = frontend.extract_features(torch.as_tensor(img), cal, 10.0, **kw)
+    fast_cuda.reset_launch_counts()
+    fg = frontend.extract_features(torch.as_tensor(img).cuda(),
+                                   cal.to("cuda"), 10.0, **kw)
+    torch.cuda.synchronize()
+    shapes = fast_cuda.launch_counts_by_shape()
+    assert shapes == {("fast_detect_and_smooth", 180, 320): 1,
+                      ("fast_detect_and_smooth", 120, 213): 1,
+                      ("fast_detect_and_smooth", 80, 142): 1}
+    assert int(fc.valid.sum()) > 100
+    for name in ("valid", "octave"):
+        assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name))
+    assert float((fg.uv.cpu() - fc.uv).abs().max()) <= 1e-3

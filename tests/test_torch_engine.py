@@ -18,7 +18,7 @@ third-frame confirmation passed.
 (b) Whole drive from an empty state, each engine with its own RNG: both
     initialize, tracked counts within 2, the port's Sim3-aligned ATE within
     1.5x the JAX engine's.
-(c) Guardrails: settings that are still unported raise, the lost branch
+(c) Guardrails: the parallel layer's settings raise, the lost branch
     runs a relocalization instead of raising, and an entry point built
     without a device argument raises where there is no CUDA card.
 
@@ -164,22 +164,38 @@ def test_state_round_trip(fixture):
     ("stereo", "use_stereo_init", True),
 ])
 def test_unsupported_settings_raise(change, fixture):
+    """The parallel layer's settings raise; the fuser and stereo init,
+    which used to raise as well, now build and run a frame (the name and
+    ids are kept so that the test's history stays in one place)."""
     bag, field, value = change
     s = port_settings("fast")
     s = s.replace(**{bag: dataclasses.replace(getattr(s, bag),
                                               **{field: value})})
-    with pytest.raises(NotImplementedError):
-        MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
+    if bag == "parallel":
+        with pytest.raises(NotImplementedError, match=field):
+            MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
+        return
+    eng = MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
+    res = eng.process_frame(fixture["imgs"][0], timestamp=0.0)
+    assert res.state == TrackingState.INITIALIZING
+    assert eng.output_row(0)[13] > 100
 
 
 def test_multilevel_raises(fixture):
+    """Two pyramid levels used to raise; they now build and run a frame
+    whose features come from both levels (name kept)."""
     s = port_settings("fast")
     cam = s.mono.camera
     cam = dataclasses.replace(cam, features=dataclasses.replace(
         cam.features, num_levels=2))
     s = s.replace(mono=dataclasses.replace(s.mono, camera=cam))
-    with pytest.raises(NotImplementedError):
-        MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
+    eng = MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
+    assert eng.process_frame(fixture["imgs"][0]).state \
+        == TrackingState.INITIALIZING
+    octave = eng.state.init_feats.octave[0]
+    valid = eng.state.init_feats.valid[0]
+    assert int((valid & (octave == 0)).sum()) > 50
+    assert int((valid & (octave == 1)).sum()) > 10
 
 
 def test_relocalization_branch_raises(fixture):

@@ -17,8 +17,12 @@ PKG = ROOT / "mageslam_tpu_torch"
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys; import mageslam_tpu_torch, "
-            "mageslam_tpu_torch.runtime.fused, mageslam_tpu_torch.convert; "
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    assert "mageslam_tpu_torch.fuser.imu" in modules
+    code = ("import sys, importlib; import mageslam_tpu_torch; "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
             "print('jax' in sys.modules or 'mageslam_tpu' in sys.modules)")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
