@@ -71,6 +71,27 @@ Phases (each raises on failure, so any failure exits non-zero):
     keypoints on the card against the CPU's and JAX's, and the feature count
     of the keypoint-undistortion route beside it.
 
+12. the dataset: ``examples/console_torch.run`` (the console a user calls)
+    on ``tests/data/mini_seq`` on the card, 40 EuRoC-format frames read
+    from disk by the port's ``FramePump`` (its route, native or Python,
+    printed with the build seconds), ``fast_settings()``; tracked at least
+    the JAX console's count minus 3 with the last initializing frame
+    before 20, the Sim3 ATE under 1.5x the worst of the JAX console's ATEs
+    at seeds 1-3 (``tests/data/torch_dataset.npz``), the fossil CSV and
+    TUM files written to a temporary directory and read back; then the
+    pump decodes ``tests/data/ring_seq``'s 150 frames, which must equal
+    the frames stored in ``torch_ring150.npz`` outside its blackout;
+13. checkpoints: the orbit drive's state after frame 30 through
+    ``io/serialization.save_state`` and ``load_state`` into a fresh
+    engine's template, every tensor equal bit for bit; the JAX package's
+    checkpoint stored in ``torch_dataset.npz`` loaded on the card, equal
+    to ``convert.engine_state_from_npz`` of the same state.
+
+The facade runs at its default ``fetch_every`` (8): results resolve through
+its fetch ring, and the prior provider, events and fuser fences follow its
+timing; the phase holds the frames resolved per call and the frames that
+got no prior to the JAX facade's drive of the same inputs (``nf_*``).
+
 Phase 4 also runs both entry points on the pyramid levels of the fixture's
 frames (120x213, 80x142, 320x501, 213x334: widths that are not a multiple
 of four take the kernel's unaligned route), timed and bounded like the
@@ -95,6 +116,11 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_orbit60.npz"
 RING_FIXTURE = ROOT / "tests" / "data" / "torch_ring150.npz"
 FACADE_FIXTURE = ROOT / "tests" / "data" / "torch_facade.npz"
+DATASET_FIXTURE = ROOT / "tests" / "data" / "torch_dataset.npz"
+MINI_SEQ = ROOT / "tests" / "data" / "mini_seq"
+RING_SEQ = ROOT / "tests" / "data" / "ring_seq"
+RING_BLACKOUT = range(130, 138)
+CHECKPOINT_FRAME = 30
 # the pyramid levels of the fixture frames that the kernel cases run on
 LEVEL_CASES = {"120x213 level": "lv_180_f0_l1", "80x142 level": "lv_180_f0_l2",
                "320x501 level": "lv_480_f0_l1",
@@ -381,7 +407,7 @@ def engine_phase(torch, np, z):
           f"points {eng.num_map_points}, ATE {ate:.5f} (bound {bound:.5f}, "
           f"extent {extent:.3f}), steady frames/s over frames 20-59 "
           f"{steady:.2f}, host syncs/frame {syncs / len(imgs):.2f} "
-          f"(+1 output-row read), loop detections "
+          f"(+1 read per window of 8 output rows), loop detections "
           f"{eng.engine.counts['loop_detections']} run / "
           f"{eng.engine.counts['loop_no_candidates']} without a candidate, "
           f"cheap-loop-closure associations {eng.cheap_loop_associations}, "
@@ -402,7 +428,8 @@ def wide_blur_phase(torch, np, z):
     imgs = z["imgs"][:WIDE_BLUR_FRAMES]
     fast_cuda.reset_launch_counts()
     for i, img in enumerate(imgs):
-        res = eng.process_frame(img, timestamp=i / 30.0)
+        eng.process_frame(img, timestamp=i / 30.0)
+    for i, res in eng.flush().items():
         if res.pose is not None and not np.isfinite(res.pose).all():
             raise AssertionError(f"wide blur: non-finite pose at frame {i}")
     torch.cuda.synchronize()
@@ -578,8 +605,9 @@ def ring_phase(torch, np, z):
           f"keyframes {eng.num_keyframes}, map points {eng.num_map_points}, "
           f"ATE {ate:.5f} (bound {bound:.5f}, JAX seeds "
           f"{z[f'{name}_ate_seeds'].round(5).tolist()}, extent "
-          f"{extent:.3f}), host syncs/frame {syncs / n:.2f} (+1 output-row "
-          f"read), steady frames/s {before:.2f} over frames 20-{occ0 - 1} "
+          f"{extent:.3f}), host syncs/frame {syncs / n:.2f} (+1 read per "
+          f"window of 8 output rows), steady frames/s {before:.2f} over "
+          f"frames 20-{occ0 - 1} "
           f"and {after:.2f} over frames {recovery + 2}-{n - 1}, "
           f"drive+fossilize {t_total:.1f} s, launches {launches}",
           flush=True)
@@ -799,8 +827,9 @@ def multilevel_phase(torch, np, z, f):
           f"{eng.num_map_points}, ATE {ate:.5f} (bound 1.5 x JAX "
           f"{float(f['ml_ate']):.5f} = {bound:.5f}, extent {extent:.3f}), "
           f"steady frames/s over frames 20-59 {steady:.2f}, host syncs/frame "
-          f"{syncs / n:.2f} (+1 output-row read), kernel launches "
-          f"{launches[name] / n:.0f} per frame ({by_shape})", flush=True)
+          f"{syncs / n:.2f} (+1 read per window of 8 output rows), kernel "
+          f"launches {launches[name] / n:.0f} per frame ({by_shape})",
+          flush=True)
     return launches
 
 
@@ -809,6 +838,8 @@ def facade_phase(torch, np, f):
     the mediator and a determinism recording; the volume of interest."""
     from mageslam_tpu_torch import MageSlamSettings
     from mageslam_tpu_torch.fuser.samples import SensorSample
+    from mageslam_tpu_torch.mapstore.volume_of_interest import \
+        compute_volume_of_interest
     from mageslam_tpu_torch.ops import fast_cuda
     from mageslam_tpu_torch.runtime.fused import MageSlamTorchFused
     from mageslam_tpu_torch.tracking import stereo
@@ -849,7 +880,14 @@ def facade_phase(torch, np, f):
         raise AssertionError(f"facade: median depth {depth} vs JAX "
                              f"{want_depth}")
     stream, ts = f["st_imu"], f["st_ts"]
-    fed, stamps = 0, []
+    ask, no_prior = prov.get_pose_for_time, []
+
+    def get_pose_for_time(t):
+        p = ask(t)
+        no_prior.append(p is None)
+        return p
+    prov.get_pose_for_time = get_pose_for_time
+    fed, stamps, resolved, seen = 0, [], [], set(eng._results)
     for i, img in enumerate(mono):
         while fed < len(stream) and stream[fed, 0] <= ts[i] + 1e-9:
             t, ax, ay, az, wx, wy, wz = stream[fed]
@@ -859,22 +897,39 @@ def facade_phase(torch, np, f):
             fed += 1
         eng.process_frame(img, timestamp=float(ts[i]))
         stamps.append(time.perf_counter())
+        resolved.append(len(set(eng._results) - seen))
+        seen = set(eng._results)
     results = eng.flush()
+    # a direct call without a device takes the card
+    kf = eng.map_state.kf_pose[eng.map_state.kf_valid]
+    n_kf = kf.shape[0]
+    direct = compute_volume_of_interest(
+        kf.cpu().numpy(), np.ones(n_kf), np.full(n_kf, 3.0),
+        np.ones(n_kf, bool))
+    if not direct.valid:
+        raise AssertionError("facade: compute_volume_of_interest without a "
+                             "device found no box")
+    # the fetch ring's timing, as the JAX facade's drive without flush()
+    if resolved != f["nf_resolved"].tolist() \
+            or no_prior != np.isnan(f["nf_priors"][:, 0]).tolist():
+        raise AssertionError(f"facade: resolved per call {resolved}, "
+                             f"frames without a prior {no_prior}: not the "
+                             "JAX facade's timing")
     voi, t_voi = timed(torch, eng.try_get_volume_of_interest)
     launches = fast_cuda.launch_counts()
     n = len(mono)
     tracked = sum(results[i + 1].state.value == "tracking" for i in range(n))
-    if tracked < int(f["st_tracked"]) - 3:
+    if tracked < int(f["nf_tracked"]) - 3:
         raise AssertionError(f"facade: tracked {tracked} < JAX "
-                             f"{int(f['st_tracked'])} - 3")
+                             f"{int(f['nf_tracked'])} - 3")
     g, scale = eng.get_gravity_direction(), eng.get_scale()
     if g is None or scale is None:
         raise AssertionError("facade: the fuser did not converge")
     angle = float(np.degrees(np.arccos(np.clip(
-        np.dot(g, f["st_gravity"]), -1.0, 1.0))))
-    if angle > 2.0 or abs(scale / float(f["st_scale"]) - 1.0) > 0.05:
+        np.dot(g, f["nf_gravity"]), -1.0, 1.0))))
+    if angle > 2.0 or abs(scale / float(f["nf_scale"]) - 1.0) > 0.05:
         raise AssertionError(f"facade: gravity {g} ({angle:.3f} deg off), "
-                             f"scale {scale} vs JAX {float(f['st_scale'])}")
+                             f"scale {scale} vs JAX {float(f['nf_scale'])}")
     if voi is None or not (voi.max_corner > voi.min_corner).all():
         raise AssertionError(f"facade: volume of interest {voi}")
     if launches["fast_detect_and_smooth"] != 2 + n:
@@ -893,14 +948,21 @@ def facade_phase(torch, np, f):
           f"stereo_initialize {t_init:.1f} ms "
           f"({4 * settings.stereo.map_init.bundle_adjust.num_steps + 4} LM "
           f"steps)", flush=True)
-    print(f"[facade] mono: tracked {tracked}/{n} (JAX "
-          f"{int(f['st_tracked'])}), steady frames/s over frames 10-{n - 1} "
+    print(f"[facade] mono, fetch_every 8: tracked {tracked}/{n} (JAX "
+          f"{int(f['nf_tracked'])}), resolved per call {resolved} (as "
+          f"JAX's), {sum(no_prior)} frames without a prior (as JAX's), "
+          f"steady frames/s over frames 10-{n - 1} "
           f"{steady:.2f}; gravity {np.round(g, 5).tolist()} (JAX "
-          f"{np.round(f['st_gravity'], 5).tolist()}, {angle:.4f} deg apart), "
-          f"scale {scale:.5f} (JAX {float(f['st_scale']):.5f}); volume of "
+          f"{np.round(f['nf_gravity'], 5).tolist()}, {angle:.4f} deg apart), "
+          f"scale {scale:.5f} (JAX {float(f['nf_scale']):.5f}); volume of "
           f"interest {np.round(voi.min_corner, 4).tolist()} - "
           f"{np.round(voi.max_corner, 4).tolist()} (JAX "
-          f"{np.round(f['st_voi'], 4).tolist()}) in {t_voi:.1f} ms; events "
+          f"{np.round(f['nf_voi'], 4).tolist()}) in {t_voi:.1f} ms, a "
+          f"direct compute_volume_of_interest with no device on "
+          f"the card; "
+          f"keyframes {eng.num_keyframes} (JAX {int(f['nf_keyframes'])}), "
+          f"map points {eng.num_map_points} (JAX "
+          f"{int(f['nf_map_points'])}); events "
           f"{events}; determinism streams {len(det.streams)} x "
           f"{len(det.streams['FusedEngine'])}; launches {launches}",
           flush=True)
@@ -950,13 +1012,161 @@ def rectified_phase(torch, np, f):
     return launches
 
 
+def dataset_phase(torch, np, d, ring):
+    """The console's golden path from disk, then the pump's decode of the
+    ring sequence against the stored frames."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "examples"))
+    import console_torch
+    from mageslam_tpu_torch.io import native_loader
+    from mageslam_tpu_torch.io.datasets import load_dataset
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.runtime.results import TrackingState
+
+    t0 = time.perf_counter()
+    route = native_loader.backend()
+    t_route = time.perf_counter() - t0
+    if route != "native":
+        print(f"[dataset] native frame pump not built: "
+              f"{native_loader.build_error}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv, tum = Path(tmp) / "fossil.csv", Path(tmp) / "traj.tum"
+        args = console_torch.parse_args(["--dataset", str(MINI_SEQ), "--csv",
+                                         str(csv), "--tum", str(tum)])
+        fast_cuda.reset_launch_counts()
+        out = console_torch.run(args)
+        torch.cuda.synchronize()
+        launches = fast_cuda.launch_counts()
+        eng, fossil, n = out["engine"], out["fossil"], out["count"]
+        if eng.device.type != "cuda" or out["source"] != route:
+            raise AssertionError(f"dataset: engine on {eng.device}, frames "
+                                 f"from {out['source']}")
+        states = [out["results"][i].state for i in range(n)]
+        last_init = max(i for i, st in enumerate(states)
+                        if st == TrackingState.INITIALIZING)
+        want = int(d["con_tracked"][0])
+        if n != 40 or out["tracked"] < want - 3 or last_init >= 20:
+            raise AssertionError(f"dataset: tracked {out['tracked']}/{n} "
+                                 f"(JAX {want}), last initializing frame "
+                                 f"{last_init}")
+        bound = float(d["con_ate_bound"])
+        if out["ate"] is None or not out["ate"] < bound:
+            raise AssertionError(f"dataset: ATE {out['ate']} >= {bound}")
+        if launches["fast_detect_and_smooth"] != n:
+            raise AssertionError(f"dataset: launches {launches} for {n} "
+                                 "frames")
+        rows = np.loadtxt(csv, delimiter=",", ndmin=2)
+        mats = fossil.world_from_camera_mats().reshape(-1, 16)
+        traj = np.loadtxt(tum, ndmin=2)
+        if rows.shape != (len(fossil.frame_ids), 17) \
+                or not (rows[:, 0] == fossil.frame_ids).all() \
+                or not np.allclose(rows[:, 1:], mats, rtol=1e-6, atol=1e-7) \
+                or traj.shape != (len(fossil.frame_ids), 8) \
+                or not np.allclose(traj[:, 0], fossil.timestamps, atol=1e-6):
+            raise AssertionError(f"dataset: CSV {rows.shape} / TUM "
+                                 f"{traj.shape} do not read back as the "
+                                 f"fossil's {len(fossil.frame_ids)} poses")
+    stamps = out["stamps"]
+    steady = (n - 21) / (stamps[-1] - stamps[19])
+    print(f"[dataset] mini_seq from disk: frame pump {route} (build "
+          f"{native_loader.build_seconds or 0:.2f} s, first use "
+          f"{t_route:.2f} s), tracked {out['tracked']}/{n} (JAX console "
+          f"{d['con_tracked'].tolist()} at seeds 1-3), last initializing "
+          f"frame {last_init} (JAX {int(d['con_last_init'][0])}), ATE "
+          f"{out['ate']:.5f} (bound 1.5 x JAX's worst "
+          f"{float(d['con_ate'].max()):.5f} = {bound:.5f}), steady "
+          f"frames/s over frames 20-39 {steady:.2f}, host syncs/frame "
+          f"{eng.host_syncs / n:.2f}, launches {launches}, keyframes "
+          f"{eng.num_keyframes}, map points {eng.num_map_points}; CSV "
+          f"{rows.shape[0]} rows and TUM {traj.shape[0]} rows read back",
+          flush=True)
+
+    paths = load_dataset(str(RING_SEQ)).image_paths
+    stored = decode_frames(np, ring["imgs_dy"])
+    t0 = time.perf_counter()
+    frames = dict(native_loader.FramePump(paths, 320, 180))
+    t_ring = time.perf_counter() - t0
+    keep = [i for i in range(len(stored)) if i not in RING_BLACKOUT]
+    bad = [i for i in keep if i not in frames
+           or not np.array_equal(frames[i], stored[i].astype(np.float32))]
+    if len(frames) != len(paths) or len(paths) != len(stored) or bad:
+        raise AssertionError(f"dataset: ring_seq decode: {len(frames)} of "
+                             f"{len(paths)} frames, differing {bad}")
+    print(f"[dataset] ring_seq: {len(frames)} frames decoded by the "
+          f"{route} pump in {t_ring:.2f} s, {len(keep)} outside the "
+          f"blackout equal to the stored frames", flush=True)
+    return launches
+
+
+def checkpoint_phase(torch, np, z, d):
+    """``save_state`` / ``load_state`` on the card, both directions of the
+    JAX package's format."""
+    import tempfile
+    from mageslam_tpu_torch import convert
+    from mageslam_tpu_torch.io import serialization
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.runtime import device_engine as de
+    sys.path.insert(0, str(ROOT / "examples"))
+    import console_torch
+
+    def leaves(obj, prefix=""):
+        if hasattr(obj, "_fields"):
+            for name in obj._fields:
+                yield from leaves(getattr(obj, name), f"{prefix}{name}/")
+        else:
+            yield prefix.rstrip("/"), obj
+
+    def differing(a, b):
+        return [k for (k, x), (_, y) in zip(leaves(a), leaves(b))
+                if x.dtype != y.dtype or x.device != y.device
+                or not torch.equal(x, y)]
+
+    settings = ref_settings()
+    eng, _ = make_engine(settings, z)
+    fast_cuda.reset_launch_counts()
+    for i, img in enumerate(z["imgs"][:CHECKPOINT_FRAME + 1]):
+        eng.process_frame(img, timestamp=i / 30.0)
+    eng.flush()
+    launches = fast_cuda.launch_counts()
+    st = eng.state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "orbit.npz"
+        _, t_save = timed(torch, lambda: serialization.save_state(
+            str(path), st, {"frame": CHECKPOINT_FRAME}))
+        size = path.stat().st_size
+        fresh, _ = make_engine(settings, z)
+        loaded, t_load = timed(torch, lambda: serialization.load_state(
+            str(path), fresh.state))
+        bad = differing(st, loaded)
+        n_leaves = len(list(leaves(st)))
+        jpath = Path(tmp) / "jax.npz"
+        jpath.write_bytes(d["ckpt_bytes"].tobytes())
+        template = de.empty_state(console_torch.fast_settings())
+        from_jax = serialization.load_state(str(jpath), template)
+        want = convert.engine_state_from_npz(d, "cs_state/", device="cuda")
+        bad_jax = differing(want, from_jax)
+    if bad or bad_jax or launches["fast_detect_and_smooth"] != \
+            CHECKPOINT_FRAME + 1:
+        raise AssertionError(f"checkpoint: round trip differs in {bad}, "
+                             f"the JAX checkpoint in {bad_jax}, launches "
+                             f"{launches}")
+    print(f"[checkpoint] orbit state after frame {CHECKPOINT_FRAME} "
+          f"({eng.num_keyframes} keyframes): {n_leaves} tensors equal bit "
+          f"for bit after save ({t_save:.1f} ms, {size / 1e6:.2f} MB) and "
+          f"load into a fresh engine's template ({t_load:.1f} ms); the JAX "
+          f"checkpoint of the console drive's state after frame "
+          f"{int(d['cs_frame'])} loads on the card equal to the stored "
+          f"leaves; launches {launches}", flush=True)
+    return launches
+
 
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE):
+    for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE, DATASET_FIXTURE,
+                 MINI_SEQ, RING_SEQ):
         if not path.exists():
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 3
@@ -993,7 +1203,8 @@ def main() -> int:
     launches = {"fast_detect_and_smooth": engine_phase(torch, np, z),
                 "fast_detect": wide_blur_phase(torch, np, z)}
     # each drive counts from 0: the orbit's launches, then the multi-level
-    # orbit's, the facade's, the rectified frame's and the ring's
+    # orbit's, the facade's, the rectified frame's, the ring's, the
+    # dataset's and the checkpoint drive's
     for counts in (multilevel_phase(torch, np, z, facade),
                    facade_phase(torch, np, facade),
                    rectified_phase(torch, np, facade)):
@@ -1002,6 +1213,11 @@ def main() -> int:
     ring_launches, ring_map = ring_phase(torch, np, ring)
     launches["fast_detect_and_smooth"] += ring_launches
     closure_phase(torch, np, ring, ring_map)
+    dataset = np.load(DATASET_FIXTURE)
+    for counts in (dataset_phase(torch, np, dataset, ring),
+                   checkpoint_phase(torch, np, z, dataset)):
+        for name in launches:
+            launches[name] += counts[name]
 
     main_case = report["180x320 frame"]   # the main path's shape and data
     pallas = "mageslam_tpu/ops/fast_pallas.py"

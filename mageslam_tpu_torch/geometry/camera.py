@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mageslam_tpu_torch.geometry import se3
+
 MODEL_PINHOLE = 0
 MODEL_POLY3K = 1
 MODEL_RATIONAL6K = 2
@@ -64,6 +66,23 @@ class CameraCalibration(NamedTuple):
 
     def to(self, device) -> "CameraCalibration":
         return self._replace(dist=self.dist.to(device))
+
+    def k_matrix(self) -> torch.Tensor:
+        """(3, 3) float32 intrinsic matrix, on the distortion's device."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32,
+                            device=self.dist.device)
+
+    def scaled(self, sx: float, sy: float) -> "CameraCalibration":
+        """The calibration of the image resized by (sx, sy).  Each product
+        is rounded to float32, as the JAX calibration's float32 scalars
+        multiply."""
+        sx32, sy32 = _f32(sx), _f32(sy)
+        return self._replace(
+            fx=_f32(self.fx * sx32), fy=_f32(self.fy * sy32),
+            cx=_f32(self.cx * sx32), cy=_f32(self.cy * sy32),
+            width=int(round(self.width * sx)),
+            height=int(round(self.height * sy)))
 
 
 def distort_normalized(cal: CameraCalibration,
@@ -125,3 +144,30 @@ def in_bounds(cal: CameraCalibration, uv: torch.Tensor,
     return ((uv[..., 0] >= border) & (uv[..., 0] <= cal.width - 1 - border)
             & (uv[..., 1] >= border)
             & (uv[..., 1] <= cal.height - 1 - border))
+
+
+def project_world(cal: CameraCalibration, pose7: torch.Tensor,
+                  x_world: torch.Tensor):
+    """World points through a view pose to pixels: (uv, depth)."""
+    return project(cal, se3.pose_apply(pose7, x_world))
+
+
+class LinearFocalLengthModel(NamedTuple):
+    """Focal length as a linear function of lens position, f = m * lens +
+    b in units of the image width, principal point normalized to [0, 1]."""
+
+    m: float
+    b: float
+    cx: float
+    cy: float
+
+    def calibration(self, lens_position, width, height, dist=None,
+                    model=MODEL_PINHOLE) -> CameraCalibration:
+        f = _f32(_f32(_f32(self.m) * _f32(lens_position)) + _f32(self.b))
+        d = torch.zeros(8, dtype=torch.float32) if dist is None else \
+            torch.as_tensor(dist, dtype=torch.float32)
+        return CameraCalibration(
+            _f32(f * _f32(width)), _f32(f * _f32(width)),
+            _f32(_f32(self.cx) * _f32(width)),
+            _f32(_f32(self.cy) * _f32(height)), d, int(model), int(width),
+            int(height))

@@ -183,6 +183,11 @@ def pose_to_mat44(p: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], -2)
 
 
+def mat44_to_pose(m: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) view matrix -> (..., 7) pose."""
+    return make_pose(mat_to_quat(m[..., :3, :3]), m[..., :3, 3])
+
+
 def camera_center(p: torch.Tensor) -> torch.Tensor:
     """World-frame camera position C = -R^T t."""
     return -quat_rotate(quat_conj(pose_q(p)), pose_t(p))

@@ -1,12 +1,16 @@
-"""Trajectory evaluation: Sim3-aligned ATE (numpy Umeyama).
+"""Trajectory evaluation: Sim3-aligned ATE and RPE.
 
-Port of ``mageslam_tpu/io/evaluation.py`` (which imports jax) in float64
-numpy, so it runs wherever the engine does.
+Port of ``mageslam_tpu/io/evaluation.py`` (which imports jax).  The ATE is
+float64 numpy (Umeyama); the RPE goes through the port's float32 se3 /
+sim3 on the CPU, as the JAX evaluator's arithmetic does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from mageslam_tpu_torch.geometry import se3, sim3
 
 
 def _quat_rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:
@@ -47,3 +51,25 @@ def ate_rmse(est_view_poses, gt_view_poses, with_scale: bool = True):
     aligned = s * est_c @ R.T + t
     err = np.linalg.norm(aligned - gt_c, axis=-1)
     return float(np.sqrt(np.mean(err ** 2))), aligned, gt_c
+
+
+def rpe_stats(est_view_poses: np.ndarray, gt_view_poses: np.ndarray,
+              delta: int = 1):
+    """Relative pose error over frame gaps of ``delta``, after scaling the
+    estimate by its Sim3 alignment: (translation RMSE, rotation RMSE in
+    radians).  float32 through the port's se3 / sim3, as the JAX
+    evaluator computes it."""
+    est = torch.as_tensor(np.asarray(est_view_poses, np.float32))
+    gt = torch.as_tensor(np.asarray(gt_view_poses, np.float32))
+    g = sim3.umeyama_alignment(se3.camera_center(est),
+                               se3.camera_center(gt))
+    s = float(sim3.sim3_s(g).reshape(-1)[0])
+    e_rel = se3.pose_compose(est[delta:], se3.pose_inverse(est[:-delta]))
+    g_rel = se3.pose_compose(gt[delta:], se3.pose_inverse(gt[:-delta]))
+    dt = np.linalg.norm(s * se3.pose_t(e_rel).numpy()
+                        - se3.pose_t(g_rel).numpy(), axis=-1)
+    dr = np.linalg.norm(se3.so3_log(se3.quat_mul(
+        se3.pose_q(e_rel), se3.quat_conj(se3.pose_q(g_rel)))).numpy(),
+        axis=-1)
+    return float(np.sqrt(np.mean(np.square(dt)))), \
+        float(np.sqrt(np.mean(np.square(dr))))

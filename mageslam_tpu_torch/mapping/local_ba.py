@@ -127,3 +127,8 @@ def unassociate_outliers(m: ms.MapState, window: LocalBAWindow,
     assoc = torch.nn.functional.pad(m.kf_assoc, (0, 1, 0, 1), value=-1)
     assoc[kf_safe.long(), feat_flat.long()] = -1
     return m._replace(kf_assoc=assoc[:K, :F].contiguous())
+
+
+def ba_error_px(result: BAResult, fx: float) -> float:
+    """The BA's inlier mean square error in pixels squared."""
+    return float(result.mean_sq_error) * fx * fx

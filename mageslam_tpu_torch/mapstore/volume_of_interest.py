@@ -18,6 +18,7 @@ import torch
 
 from mageslam_tpu_torch.config import VolumeOfInterestSettings
 from mageslam_tpu_torch.geometry import se3
+from mageslam_tpu_torch.runtime.devices import resolve_device
 
 
 class VolumeOfInterest(NamedTuple):
@@ -76,11 +77,12 @@ def compute_volume_of_interest(poses: np.ndarray, nears: np.ndarray,
                                settings: VolumeOfInterestSettings = None,
                                device=None) -> VolumeOfInterest:
     """The high-interest box, refined over ``settings.iterations`` passes
-    of the voxel grid; ``device`` is where the grid is scored."""
+    of the voxel grid; ``device`` is where the grid is scored: the CUDA
+    card unless the caller names another, and a raise without one."""
     s = settings if settings is not None else VolumeOfInterestSettings()
+    dev = resolve_device(device)
     if valid.sum() == 0:
         return VolumeOfInterest(np.zeros(3), np.zeros(3), False)
-    dev = torch.device(device or "cpu")
     poses_t = torch.as_tensor(np.asarray(poses, np.float32), device=dev)
     centers = se3.camera_center(poses_t)
     fwd = se3.quat_rotate(se3.quat_conj(se3.pose_q(poses_t)),

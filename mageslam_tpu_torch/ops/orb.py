@@ -108,6 +108,11 @@ def patch_orientations(patches: torch.Tensor) -> torch.Tensor:
     return torch.atan2(flat @ wy, flat @ wx)
 
 
+def compute_orientations(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angles (K,) in radians at keypoints uv."""
+    return patch_orientations(_extract_patches(img, uv))
+
+
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(..., 256) bool -> (..., 8) int32 words (uint32 bit pattern)."""
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
@@ -142,6 +147,15 @@ def _descriptors_from_patches(patches: torch.Tensor, angles: torch.Tensor,
         # exact one-hot matmul picks the same values)
         v1, v2 = flat[:, i1], flat[:, i2]
     return _pack_bits(v1 < v2)
+
+
+def compute_descriptors(img_smooth: torch.Tensor, uv: torch.Tensor,
+                        angles: torch.Tensor,
+                        use_orientation: bool = True) -> torch.Tensor:
+    """(K, 8) int32 rotated-BRIEF words (uint32 bit pattern) of a blurred
+    image; plain BRIEF with ``use_orientation=False``."""
+    return _descriptors_from_patches(_extract_patches(img_smooth, uv),
+                                     angles, use_orientation)
 
 
 def orient_and_describe(img_smooth: torch.Tensor, uv: torch.Tensor,

@@ -21,6 +21,15 @@ class Keypoints(NamedTuple):
     valid: torch.Tensor     # (K,) bool
 
 
+def select_topk(score: torch.Tensor, max_features: int) -> Keypoints:
+    """Global top-k keypoints from an NMS'd score map."""
+    w = score.shape[1]
+    vals, idx = util.topk(score.reshape(-1), max_features)
+    ys = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
+    xs = (idx % w).to(torch.float32)
+    return Keypoints(torch.stack([xs, ys], -1), vals, vals > 0)
+
+
 def select_gridded(score: torch.Tensor, max_features: int,
                    cells_x: int = 32, cells_y: int = 32,
                    per_cell: int = 4) -> Keypoints:

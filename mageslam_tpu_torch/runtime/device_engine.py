@@ -51,6 +51,7 @@ from mageslam_tpu_torch.mapping.cheap_loop_closure import cheap_loop_closure
 from mageslam_tpu_torch.mapstore import map_state as ms
 from mageslam_tpu_torch.mapstore import pose_history as ph
 from mageslam_tpu_torch.ops import pyramid, util
+from mageslam_tpu_torch.runtime.devices import resolve_device
 from mageslam_tpu_torch.solvers import sampling
 from mageslam_tpu_torch.solvers.bundle_adjust import (BAProblem, BAResult,
                                                       bundle_adjust_impl,
@@ -149,18 +150,6 @@ def _empty_window(window_size: int, num_fixed: int, max_points: int,
         torch.zeros(M, dtype=torch.bool, device=dev),
         torch.zeros(LB, dtype=torch.int32, device=dev),
         torch.zeros(LB, dtype=torch.bool, device=dev))
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the CUDA card unless the caller
-    names another.  Without a CUDA device the default raises; there is no
-    quiet step down to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the engine runs on the card by default; pass "
-            'device="cpu" to ask for the CPU')
-    return dev
 
 
 def empty_state(settings: MageSlamSettings, device=None) -> EngineState:

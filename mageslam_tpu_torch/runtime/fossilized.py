@@ -41,11 +41,22 @@ class FossilizedMap:
             keyframe_poses=m.kf_pose.cpu().numpy()[kf_ok],
             keyframe_frame_ids=m.kf_frame_id.cpu().numpy()[kf_ok])
 
+    @staticmethod
+    def from_engine(engine) -> "FossilizedMap":
+        """From a facade (``MageSlamTorchFused``) as it stands, without the
+        final global BA that ``fossilize`` runs."""
+        return FossilizedMap.from_state(engine.map_state,
+                                        engine.state.history)
+
     def pose_for_frame(self, frame_id: int) -> Optional[np.ndarray]:
         i = np.searchsorted(self.frame_ids, frame_id)
         if i < len(self.frame_ids) and self.frame_ids[i] == frame_id:
             return self.poses[i]
         return None
+
+    def camera_centers(self) -> np.ndarray:
+        """(N, 3) world-frame camera centres."""
+        return se3.camera_center(torch.as_tensor(self.poses)).numpy()
 
     def _camera_to_world(self) -> np.ndarray:
         if not len(self.poses):

@@ -39,6 +39,7 @@ import torch
 from mageslam_tpu_torch import convert
 from mageslam_tpu_torch.geometry.camera import CameraCalibration
 from mageslam_tpu_torch.io.evaluation import ate_rmse
+from mageslam_tpu_torch.mapstore import volume_of_interest
 from mageslam_tpu_torch.runtime import device_engine as de
 from mageslam_tpu_torch.runtime.fused import MageSlamTorchFused
 from mageslam_tpu_torch.runtime.results import TrackingState
@@ -176,8 +177,10 @@ def test_unsupported_settings_raise(change, fixture):
             MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
         return
     eng = MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
-    res = eng.process_frame(fixture["imgs"][0], timestamp=0.0)
-    assert res.state == TrackingState.INITIALIZING
+    # the result resolves through the fetch ring, after the call
+    assert eng.process_frame(fixture["imgs"][0], timestamp=0.0).state \
+        == TrackingState.SKIPPED
+    assert eng.result_for(0).state == TrackingState.INITIALIZING
     assert eng.output_row(0)[13] > 100
 
 
@@ -190,8 +193,8 @@ def test_multilevel_raises(fixture):
         cam.features, num_levels=2))
     s = s.replace(mono=dataclasses.replace(s.mono, camera=cam))
     eng = MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
-    assert eng.process_frame(fixture["imgs"][0]).state \
-        == TrackingState.INITIALIZING
+    eng.process_frame(fixture["imgs"][0])
+    assert eng.result_for(0).state == TrackingState.INITIALIZING
     octave = eng.state.init_feats.octave[0]
     valid = eng.state.init_feats.valid[0]
     assert int((valid & (octave == 0)).sum()) > 50
@@ -226,7 +229,11 @@ def test_relocalization_branch_raises(fixture):
     lambda s, cal: MageSlamTorchFused(s, cal),
     lambda s, cal: de.DeviceEngine(s, cal),
     lambda s, cal: de.empty_state(s),
-], ids=["MageSlamTorchFused", "DeviceEngine", "empty_state"])
+    lambda s, cal: volume_of_interest.compute_volume_of_interest(
+        np.tile([1.0, 0, 0, 0, 0, 0, 0], (2, 1)), np.ones(2), np.full(2, 3.0),
+        np.ones(2, bool)),
+], ids=["MageSlamTorchFused", "DeviceEngine", "empty_state",
+        "compute_volume_of_interest"])
 def test_entry_points_default_to_the_card(build, fixture, monkeypatch):
     """With no ``device`` argument the entry points ask for the CUDA card;
     where there is none they raise and name ``device="cpu"`` instead of

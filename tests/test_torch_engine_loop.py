@@ -252,8 +252,8 @@ def test_unported_settings_still_raise(ring, change, named):
             MageSlamTorchFused(s, ring_calibration(ring), device="cpu")
         return
     eng = MageSlamTorchFused(s, ring_calibration(ring), device="cpu")
-    res = eng.process_frame(decode_frames(ring)[0], timestamp=0.0)
-    assert res.state == TrackingState.INITIALIZING
+    eng.process_frame(decode_frames(ring)[0], timestamp=0.0)
+    assert eng.result_for(0).state == TrackingState.INITIALIZING
     assert eng.output_row(0)[13] > 100
     assert eng.frames_dropped == 0
 

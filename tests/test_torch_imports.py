@@ -16,13 +16,20 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "mageslam_tpu_torch"
 
 
+CONSOLE = ROOT / "examples" / "console_torch.py"
+
+
 def test_import_leaves_jax_unloaded():
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
-    assert "mageslam_tpu_torch.fuser.imu" in modules
-    code = ("import sys, importlib; import mageslam_tpu_torch; "
+    for m in ("fuser.imu", "device", "io.datasets", "io.native_loader",
+              "io.serialization", "io.synthetic"):
+        assert f"mageslam_tpu_torch.{m}" in modules
+    # the console too, as a script would load it
+    code = ("import sys, importlib, runpy; import mageslam_tpu_torch; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
+            f"runpy.run_path({str(CONSOLE)!r}, run_name='console'); "
             "print('jax' in sys.modules or 'mageslam_tpu' in sys.modules)")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -45,10 +52,25 @@ def _imports(path: Path):
 def test_package_sources_import_no_jax():
     # the package, and what runs on a GPU host that has no JAX
     files = sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+        CONSOLE]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "mageslam_tpu"), (
                 path, mod)
+
+
+def test_mapstore_leaves_the_engine_unloaded():
+    # a map-store leaf asks where to run without loading the runtime above
+    code = ("import sys; "
+            "import mageslam_tpu_torch.mapstore.volume_of_interest; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('mageslam_tpu_torch.runtime.')))")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['mageslam_tpu_torch.runtime.devices']"

@@ -217,11 +217,17 @@ def test_stereo_bootstrap_through_the_facade(z):
     mono = decode_frames(z["st_mono_dy"])
     r1, r2 = eng.process_stereo_frames(mono[0], mono[0], extr,
                                        timestamp=float(z["st_ts"][0]))
-    assert r1.state == TrackingState.TRACKING and r1.frame_id == 1
-    np.testing.assert_allclose(
-        r2.pose, np.asarray(jfc.se3.pose_compose(jnp.asarray(extr),
-                                                 jnp.asarray(r1.pose))),
-        atol=1e-6)
+    # the pair's results resolve through the fetch ring, after the call
+    assert r1.frame_id == r2.frame_id == 1
+    assert r1.state == r2.state == TrackingState.SKIPPED and r2.pose is None
+    r1 = eng.result_for(1)
+    assert r1.state == TrackingState.TRACKING
+    # the secondary pose is the rig extrinsics after a resolved primary
+    want = np.asarray(jfc.se3.pose_compose(jnp.asarray(extr),
+                                           jnp.asarray(r1.pose)))
+    eng.process_frame = lambda img, timestamp=None: r1
+    _, r2 = eng.process_stereo_frames(mono[1], mono[1], extr)
+    np.testing.assert_allclose(r2.pose, want, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -265,12 +271,12 @@ def test_volume_of_interest_matches_jax():
     vj = convert.volume_of_interest_from_jax(
         jvoi.compute_volume_of_interest(poses, nears, fars, valid))
     vt = volume_of_interest.compute_volume_of_interest(
-        poses, nears, fars, valid, VolumeOfInterestSettings())
+        poses, nears, fars, valid, VolumeOfInterestSettings(), device="cpu")
     assert vt.valid == vj.valid is True
     np.testing.assert_allclose(vt.min_corner, vj.min_corner, atol=1e-4)
     np.testing.assert_allclose(vt.max_corner, vj.max_corner, atol=1e-4)
     assert not volume_of_interest.compute_volume_of_interest(
-        poses, nears, fars, np.zeros(6, bool)).valid
+        poses, nears, fars, np.zeros(6, bool), device="cpu").valid
 
 
 def test_volume_of_interest_from_map_matches_jax(z):
@@ -426,6 +432,7 @@ def test_whole_facade_drive(z):
             prov.add_sample(ts, (wx, wy, wz))
             fed += 1
         eng.process_frame(img, timestamp=t)
+        eng.flush()      # the fixture's drive resolves every frame at once
     results = eng.flush()
     tracked = sum(results[i + 1].state == TrackingState.TRACKING
                   for i in range(len(z["st_ts"])))

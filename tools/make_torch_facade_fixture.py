@@ -27,13 +27,22 @@ Frames are stored as row differences (mod 256), as
   fuser's mode after each frame, gravity, scale, map after the bootstrap,
   volume of interest; the engine state after mono frame ``CS_FRAME``
   (``cs_state/*``) for a carried-state window;
+- ``nf_*``: the same drive at the facade's default ``fetch_every`` (8)
+  with no ``flush()`` between frames, so that results, priors, events and
+  fuser fences follow the fetch ring: rows, priors handed to the engine,
+  frames resolved at each call, events, fuser modes after each call,
+  tracked count, gravity, scale, keyframes, map points and the volume of
+  interest;
 - ``ud_*``: a distorted (poly3k) calibration, orbit frame 0 warped through
   it, and the JAX ``extract_for_settings`` output with
   ``undistort_image_pixels`` on.
 
-Run from the repository root (about 6 minutes on 8 CPU cores):
+Run from the repository root (about 8 minutes on 8 CPU cores):
 
     JAX_PLATFORMS=cpu python tools/make_torch_facade_fixture.py
+
+Name parts (``facade_drive_no_flush``, ...) to recompute only those and
+keep the file's other keys.
 """
 
 from __future__ import annotations
@@ -389,12 +398,76 @@ def facade_drive(out: dict):
           f"{len(events.events)} events", flush=True)
 
 
-def main():
+def facade_drive_no_flush(out: dict):
+    from mageslam_tpu.fuser.samples import SensorSample
+    from mageslam_tpu.runtime.fused import MageSlamTPUFused
+    from mageslam_tpu.runtime.slam import TrackingState
+    from mageslam_tpu.tracking.pose_priors import IMUPosePriorProvider
+    from make_torch_fixture import _RowRecorder
+
+    cal, extr, pair, mono, _, ts = stereo_world()
+    imu = imu_stream(float(ts[-1]))
+    prov = IMUPosePriorProvider()
+    given = []
+    ask = prov.get_pose_for_time
+
+    def get_pose_for_time(timestamp):
+        p = ask(timestamp)
+        given.append(np.full(7, np.nan, np.float32) if p is None
+                     else np.asarray(p, np.float32))
+        return p
+    prov.get_pose_for_time = get_pose_for_time
+    rows = _RowRecorder()
+    eng = MageSlamTPUFused(facade_settings(), cal, seed=1,
+                           pose_prior_provider=prov, determinator=rows)
+    events = Recorder(eng.mediator)
+    eng.process_stereo_frames(pair[0], pair[1], extr, timestamp=0.0)
+    fed, modes, resolved, seen = 0, [], [], set(eng._results)
+    for i, img in enumerate(mono):
+        while fed < len(imu) and imu[fed, 0] <= ts[i] + 1e-9:
+            t, ax, ay, az, wx, wy, wz = imu[fed]
+            eng.add_sensor_sample(SensorSample.accel(t, (ax, ay, az)))
+            eng.add_sensor_sample(SensorSample.gyro(t, (wx, wy, wz)))
+            prov.add_sample(t, (wx, wy, wz))
+            fed += 1
+        eng.process_frame(img, timestamp=float(ts[i]))
+        modes.append(int(eng._fuser.mode))
+        resolved.append(len(set(eng._results) - seen))
+        seen = set(eng._results)
+    results = eng.flush()
+    tracked = sum(results[i + 1].state == TrackingState.TRACKING
+                  for i in range(N_MONO))
+    g, sc = eng.get_gravity_direction(), eng.get_scale()
+    voi = eng.try_get_volume_of_interest()
+    out.update(
+        nf_voi=np.stack([voi.min_corner, voi.max_corner]).astype(np.float64)
+        if voi is not None else np.full((2, 3), np.nan),
+        nf_keyframes=np.int64(eng.num_keyframes),
+        nf_map_points=np.int64(eng.num_map_points),
+        nf_rows=np.stack([rows.rows[i + 1] for i in range(N_MONO)]),
+        nf_priors=np.stack(given), nf_resolved=np.array(resolved, np.int64),
+        nf_events=np.array(events.events, np.int64),
+        nf_modes=np.array(modes, np.int64), nf_tracked=np.int64(tracked),
+        nf_gravity=np.asarray(g if g is not None else np.full(3, np.nan)),
+        nf_scale=np.float64(sc if sc is not None else np.nan))
+    print(f"facade, no flush: tracked {tracked}/{N_MONO}, resolved per "
+          f"call {resolved}, fuser modes {modes}, gravity {g}, scale {sc}, "
+          f"{eng.num_keyframes} keyframes, {eng.num_map_points} map points, "
+          f"VOI {out['nf_voi'].tolist()}", flush=True)
+
+
+PARTS = (levels_and_features, undistortion, facade_drive,
+         facade_drive_no_flush, multilevel_drive)
+
+
+def main(names):
     import jax
     jax.config.update("jax_platforms", "cpu")
-    out = {}
-    for part in (levels_and_features, undistortion, facade_drive,
-                 multilevel_drive):
+    parts = [p for p in PARTS if p.__name__ in names] if names else PARTS
+    if len(parts) != len(names or PARTS):
+        raise SystemExit(f"parts: {[p.__name__ for p in PARTS]}")
+    out = dict(np.load(OUT)) if names else {}
+    for part in parts:
         t0 = time.perf_counter()
         part(out)
         print(f"{part.__name__}: {time.perf_counter() - t0:.0f} s",
@@ -404,4 +477,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
