@@ -87,6 +87,30 @@ Phases (each raises on failure, so any failure exits non-zero):
     checkpoint stored in ``torch_dataset.npz`` loaded on the card, equal
     to ``convert.engine_state_from_npz`` of the same state.
 
+14. the host engine's console: ``examples/console_torch.run`` with
+    ``--host-engine`` (``MageSlamTorch`` on the card) on ``mini_seq``;
+    tracked at least the JAX host console's smallest count at seeds 1-3
+    minus 3, ATE under 1.5x its worst (``tests/data/torch_host.npz``), one
+    launch per frame; a ``Determinator`` records its streams and
+    ``utils/tracing.PROFILER`` times each ``process_frame`` (host clock);
+15. the host engine at full width: ``MageSlamTorch`` over the 60-frame
+    orbit at ``ref_settings()`` capacities, held to the JAX host engine's
+    drive of the same frames (tracked minus 3, ATE under 1.5x);
+16. record / replay: the console drive's frames written with the port's
+    ``RecordingWriter``, read back with ``Recording`` and replayed through
+    a fresh ``MageSlamTorch`` with a ``Determinator``: every channel's
+    stream must equal the live drive's (a ``DataFlowLog`` per run names
+    the first channel that differs); write and read timed;
+17. the analysis consumers on the ring drive's final map (8192 point
+    slots): ``knn_indices``, ``estimate_normals``, ``mollify_normals`` and
+    ``reposition_points`` on the card against the same functions on the
+    CPU (indices exactly; normals within 1e-3 where the covariance's
+    smallest eigenvalue is separated from the next by 1e-3 of the
+    largest; mollified normals 1e-5 and repositioned points 1e-5 of the
+    coordinate, each fed the CPU's input), each timed; a ``SkeletonKey``
+    snapshot of the ring engine, whose counts must equal the engine's; an
+    ``Xray`` capture of one local-BA window and its JSON size.
+
 The facade runs at its default ``fetch_every`` (8): results resolve through
 its fetch ring, and the prior provider, events and fuser fences follow its
 timing; the phase holds the frames resolved per call and the frames that
@@ -117,6 +141,7 @@ FIXTURE = ROOT / "tests" / "data" / "torch_orbit60.npz"
 RING_FIXTURE = ROOT / "tests" / "data" / "torch_ring150.npz"
 FACADE_FIXTURE = ROOT / "tests" / "data" / "torch_facade.npz"
 DATASET_FIXTURE = ROOT / "tests" / "data" / "torch_dataset.npz"
+HOST_FIXTURE = ROOT / "tests" / "data" / "torch_host.npz"
 MINI_SEQ = ROOT / "tests" / "data" / "mini_seq"
 RING_SEQ = ROOT / "tests" / "data" / "ring_seq"
 RING_BLACKOUT = range(130, 138)
@@ -615,7 +640,7 @@ def ring_phase(torch, np, z):
           f"attempt with a candidate (detect_loop ran): "
           f"{summary(loop.ms('detection'))}; gated out at the candidate "
           f"read: {summary(loop.ms('no candidate'))}", flush=True)
-    return launches["fast_detect_and_smooth"], eng.map_state
+    return launches["fast_detect_and_smooth"], eng
 
 
 def full_width_graph_times(torch, m, steps: int, min_covis: int):
@@ -1159,6 +1184,272 @@ def checkpoint_phase(torch, np, z, d):
           f"leaves; launches {launches}", flush=True)
     return launches
 
+def host_console_phase(torch, np, h):
+    """The console with ``--host-engine``: ``MageSlamTorch`` on the card
+    over ``mini_seq`` from disk, a ``Determinator`` recording its streams
+    and ``utils/tracing.PROFILER`` timing each ``process_frame``."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "examples"))
+    import console_torch
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.runtime.slam import MageSlamTorch
+    from mageslam_tpu_torch.utils import tracing
+    from mageslam_tpu_torch.utils.determinism import Determinator
+
+    det = Determinator()
+    tracing.PROFILER.enabled = True
+    tracing.PROFILER.stats.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = console_torch.parse_args([
+            "--dataset", str(MINI_SEQ), "--host-engine",
+            "--csv", str(Path(tmp) / "fossil.csv")])
+        fast_cuda.reset_launch_counts()
+        try:
+            out = console_torch.run(args, determinator=det)
+        finally:
+            tracing.PROFILER.enabled = False
+        torch.cuda.synchronize()
+        launches = fast_cuda.launch_counts()
+    eng, n = out["engine"], out["count"]
+    if not isinstance(eng, MageSlamTorch) or eng.device.type != "cuda":
+        raise AssertionError(f"host console: {type(eng).__name__} on "
+                             f"{getattr(eng, 'device', None)}")
+    want = int(h["con_tracked"].min())
+    bound = float(h["con_ate_bound"])
+    if n != 40 or out["tracked"] < want - 3:
+        raise AssertionError(f"host console: tracked {out['tracked']}/{n} "
+                             f"(JAX host console at least {want})")
+    if out["ate"] is None or not out["ate"] < bound:
+        raise AssertionError(f"host console: ATE {out['ate']} >= {bound}")
+    if launches["fast_detect_and_smooth"] != n:
+        raise AssertionError(f"host console: launches {launches} for {n} "
+                             "frames")
+    poses = [r.pose for r in out["results"].values() if r.pose is not None]
+    if not np.isfinite(np.stack(poses)).all() \
+            or not np.isfinite(out["fossil"].poses).all():
+        raise AssertionError("host console: non-finite pose")
+    stamps = out["stamps"]
+    steady = (n - 21) / (stamps[-1] - stamps[19])
+    print(f"[host console] MageSlamTorch on mini_seq from disk "
+          f"({out['source']} pump): tracked {out['tracked']}/{n} (JAX host "
+          f"console {h['con_tracked'].tolist()} at seeds 1-3), ATE "
+          f"{out['ate']:.5f} (bound 1.5 x JAX's worst "
+          f"{float(h['con_ate'].max()):.5f} = {bound:.5f}), keyframes "
+          f"{eng.num_keyframes}, map points {eng.num_map_points}, steady "
+          f"frames/s over frames 20-39 {steady:.2f}, launches {launches}; "
+          f"determinism streams {len(det.streams)} channels, "
+          f"{sum(map(len, det.streams.values()))} checkpoints", flush=True)
+    print("[host console] utils/tracing scopes (host clock: launch, not "
+          "device, time):\n" + tracing.PROFILER.report(), flush=True)
+    return launches, det
+
+
+def host_full_width_phase(torch, np, z, h):
+    """``MageSlamTorch`` over the 60-frame orbit at ``ref_settings()``
+    capacities (440 features, 256 keyframes, 8192 points), held to the JAX
+    host engine's drive of the same frames."""
+    from mageslam_tpu_torch import MageSlamSettings
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.runtime.slam import MageSlamTorch
+
+    settings = MageSlamSettings.from_json(str(h["orb_settings_json"]))
+    eng = MageSlamTorch(settings, calibration(z), seed=1)
+    if eng.device.type != "cuda":
+        raise AssertionError(f"host engine built on {eng.device}")
+    imgs = z["imgs"]
+    n = len(imgs)
+    fast_cuda.reset_launch_counts()
+    stamps, codes = [], []
+    for i, img in enumerate(imgs):
+        r = eng.process_frame(img, timestamp=i / 30.0)
+        codes.append(2 if r.state.value == "tracking" else 0)
+        stamps.append(time.perf_counter())
+    fossil, t_fossil = timed(torch, eng.fossilize)
+    launches = fast_cuda.launch_counts()
+    tracked = codes.count(2)
+    want = int(h["orb_tracked"])
+    if tracked < want - 3:
+        raise AssertionError(f"host orbit: tracked {tracked} < JAX {want} "
+                             "- 3")
+    if launches["fast_detect_and_smooth"] != n:
+        raise AssertionError(f"host orbit: launches {launches} for {n} "
+                             "frames")
+    if not np.isfinite(fossil.poses).all():
+        raise AssertionError("host orbit: non-finite pose")
+    ate, extent = sim3_ate(np, fossil, codes, z["gt_poses"])
+    bound = float(h["orb_ate_bound"])
+    if not ate < bound:
+        raise AssertionError(f"host orbit: ATE {ate} >= bound {bound}")
+    steady = (n - 21) / (stamps[-1] - stamps[19])
+    cap = settings.capacity
+    print(f"[host orbit] MageSlamTorch at {cap.max_features} feature "
+          f"slots, {cap.max_keyframes} keyframes, {cap.max_map_points} "
+          f"points: tracked {tracked}/{n} (JAX host {want}), keyframes "
+          f"{eng.num_keyframes} (JAX {int(h['orb_keyframes'])}), map points "
+          f"{eng.num_map_points}, ATE {ate:.5f} (bound 1.5 x JAX "
+          f"{float(h['orb_ate']):.5f} = {bound:.5f}, extent {extent:.3f}), "
+          f"steady frames/s over frames 20-59 {steady:.2f}, fossilize "
+          f"{t_fossil:.1f} ms, launches {launches}", flush=True)
+    return launches
+
+
+def record_replay_phase(torch, np, live):
+    """The console drive's frames written with the port's
+    ``RecordingWriter``, replayed through ``MageSlamTorch`` with a
+    ``Determinator``: its streams must equal the live drive's, channel for
+    channel."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "examples"))
+    import console_torch
+    from mageslam_tpu_torch.io.datasets import load_dataset
+    from mageslam_tpu_torch.io.native_loader import FramePump
+    from mageslam_tpu_torch.io.recording import Recording, RecordingWriter
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.runtime.slam import MageSlamTorch
+    from mageslam_tpu_torch.utils.determinism import Determinator
+    from mageslam_tpu_torch.utils.xray import DataFlow, DataFlowLog
+
+    seq = load_dataset(str(MINI_SEQ))
+    cal = seq.tracking_calibration(320)
+    frames = list(FramePump(seq.image_paths, 320, cal.height))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with RecordingWriter(tmp, {"dataset": "mini_seq"}) as w:
+            w.add_frame_stream(cal.height, 320)
+            for i, img in frames:
+                w.append("frames", float(seq.timestamps[i]
+                                         - seq.timestamps[0]),
+                         img.astype(np.uint8))
+        t_write = 1e3 * (time.perf_counter() - t0)
+        size = sum(p.stat().st_size for p in Path(tmp).iterdir())
+        t0 = time.perf_counter()
+        replay = [(t, np.array(img)) for t, img in Recording(tmp).frames()]
+        t_read = 1e3 * (time.perf_counter() - t0)
+    if len(replay) != len(frames) or not all(
+            np.array_equal(img, f.astype(np.uint8))
+            for (_, img), (_, f) in zip(replay, frames)):
+        raise AssertionError("record/replay: frames differ after the "
+                             "round trip")
+    det = Determinator()
+    eng = MageSlamTorch(console_torch.fast_settings(), cal, seed=1,
+                        determinator=det)
+    fast_cuda.reset_launch_counts()
+    for t, img in replay:
+        eng.process_frame(img, timestamp=t)
+    torch.cuda.synchronize()
+    launches = fast_cuda.launch_counts()
+    # one dataflow entry per channel: the first diverging channel is named
+    logs = []
+    for d in (live, det):
+        log = DataFlowLog()
+        for ch in sorted(set(live.streams) | set(det.streams)):
+            log.add(DataFlow(ch).output(np.asarray(d.streams.get(ch, []),
+                                                   np.uint32)))
+        logs.append(log)
+    first = logs[0].first_divergence(logs[1])
+    if first is not None:
+        ch = logs[0].entries[first]["stage"]
+        raise AssertionError(
+            f"record/replay: determinism streams differ, first at channel "
+            f"{ch!r} (checkpoint {det.compare(live)[ch]})")
+    if launches["fast_detect_and_smooth"] != len(replay):
+        raise AssertionError(f"record/replay: launches {launches}")
+    print(f"[record/replay] {len(replay)} frames recorded in "
+          f"{t_write:.1f} ms ({size / 1e6:.2f} MB), read back in "
+          f"{t_read:.1f} ms; the replay's determinism streams equal the "
+          f"live drive's on all {len(det.streams)} channels "
+          f"({sum(map(len, det.streams.values()))} checkpoints); launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def analysis_phase(torch, np, ring_eng):
+    """Point-cloud denoising at the ring map's 8192 point slots on the card
+    against the same functions on the CPU; a skeleton key over the ring
+    engine; an xray capture of one local-BA window."""
+    import json as js
+    from mageslam_tpu_torch.mapping import local_ba
+    from mageslam_tpu_torch.mapstore import denoising as dn
+    from mageslam_tpu_torch.runtime.skeleton_key import craft_skeleton_key
+    from mageslam_tpu_torch.solvers.bundle_adjust import bundle_adjust
+    from mageslam_tpu_torch.utils.xray import Xray
+
+    m = ring_eng.map_state
+    pts, valid, view = m.mp_pos, m.mp_valid, m.mp_normal
+    cpu = [x.cpu() for x in (pts, valid, view)]
+    idx_g, t_knn = timed(torch, lambda: dn.knn_indices(pts, valid),
+                         warm=True)
+    idx_c = dn.knn_indices(*cpu[:2])
+    ok = valid.cpu()
+    if not torch.equal(idx_g.cpu()[ok], idx_c[ok]):
+        raise AssertionError("analysis: knn indices differ from the CPU's")
+    n_g, t_normals = timed(torch, lambda: dn.estimate_normals(
+        pts, valid, view), warm=True)
+    n_c = dn.estimate_normals(*cpu)
+    # normals are compared where the smallest eigenvalue is separated:
+    # there the eigenvector is defined to float32 rounding on any device
+    nb = cpu[0][idx_c]
+    c = nb - nb.mean(1, keepdim=True)
+    lam = torch.linalg.eigvalsh(torch.einsum("nka,nkb->nab", c, c) / 12)
+    general = ok & ((lam[:, 1] - lam[:, 0]) >= 1e-3 * lam[:, 2])
+    dn_err = float((n_g.cpu() - n_c)[general].abs().max())
+    # mollification and repositioning on the same normals on both sides
+    mo_g, t_mollify = timed(torch, lambda: dn.mollify_normals(
+        pts, n_c.to(pts.device), valid), warm=True)
+    mo_c = dn.mollify_normals(cpu[0], n_c, cpu[1])
+    mo_err = float((mo_g.cpu() - mo_c)[ok].abs().max())
+    rp_g, t_repos = timed(torch, lambda: dn.reposition_points(
+        pts, mo_c.to(pts.device), valid), warm=True)
+    rp_c = dn.reposition_points(cpu[0], mo_c, cpu[1])
+    # relative to the coordinates' size (metres; float32 sums of 12
+    # weighted terms in another order on the card)
+    rp_err = float(((rp_g.cpu() - rp_c).abs()
+                    / rp_c.abs().clamp(min=1.0)).max())
+    if not (dn_err <= 1e-3 and mo_err <= 1e-5 and rp_err <= 1e-5
+            and int(general.sum()) >= 0.5 * int(ok.sum())):
+        raise AssertionError(
+            f"analysis: denoising off the CPU's: normals {dn_err} on "
+            f"{int(general.sum())} of {int(ok.sum())} points, mollified "
+            f"{mo_err}, repositioned {rp_err}")
+    key = craft_skeleton_key(ring_eng)
+    snap, t_snap = timed(torch, key.snapshot)
+    fids, traj = key.get_trajectory()
+    if snap["num_keyframes"] != ring_eng.num_keyframes \
+            or snap["num_map_points"] != ring_eng.num_map_points \
+            or len(snap["map_points"]) != ring_eng.num_map_points \
+            or not len(fids) or not np.isfinite(traj).all():
+        raise AssertionError(f"analysis: skeleton key snapshot "
+                             f"{snap['num_keyframes']} keyframes / "
+                             f"{snap['num_map_points']} points against the "
+                             f"engine's {ring_eng.num_keyframes} / "
+                             f"{ring_eng.num_map_points}")
+    s = ring_eng.settings
+    cap, px = s.capacity, 1.0 / float(ring_eng.cal.fx)
+    last = int(m.kf_frame_id.masked_fill(~m.kf_valid, -1).argmax())
+    win = local_ba.build_local_window(m, last, 15,
+                                      window_size=cap.local_ba_keyframes,
+                                      num_fixed=8,
+                                      max_points=cap.local_ba_points)
+    res = bundle_adjust(win.problem, s.bundle_adjust.huber_width * px,
+                        s.bundle_adjust.max_outlier_error * px,
+                        num_steps=8, pose_tethers=False)
+    xr = Xray()
+    _, t_xray = timed(torch, lambda: xr.capture("local_ba", win, res))
+    size = len(js.dumps(xr.records))
+    print(f"[analysis] denoising at {pts.shape[0]} point slots "
+          f"({int(ok.sum())} valid) on the card: knn {t_knn:.1f} ms (indices "
+          f"equal to the CPU's), estimate_normals {t_normals:.1f} ms (max "
+          f"|dn| {dn_err:.2e} on the {int(general.sum())} points in general "
+          f"position), mollify_normals {t_mollify:.1f} ms (max {mo_err:.2e}"
+          f"), reposition_points {t_repos:.1f} ms (max {rp_err:.2e} of the "
+          f"coordinate); "
+          f"skeleton key snapshot {t_snap:.1f} ms ({snap['num_keyframes']} "
+          f"keyframes, {snap['num_map_points']} points, trajectory "
+          f"{len(fids)} poses); xray of a local-BA window "
+          f"({int(win.kf_list_valid.sum())} keyframes, "
+          f"{int(win.mp_list_valid.sum())} points) {t_xray:.1f} ms, "
+          f"{size / 1e3:.1f} kB of JSON", flush=True)
+
 
 def main() -> int:
     import torch
@@ -1166,7 +1457,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE, DATASET_FIXTURE,
-                 MINI_SEQ, RING_SEQ):
+                 HOST_FIXTURE, MINI_SEQ, RING_SEQ):
         if not path.exists():
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 3
@@ -1204,20 +1495,30 @@ def main() -> int:
                 "fast_detect": wide_blur_phase(torch, np, z)}
     # each drive counts from 0: the orbit's launches, then the multi-level
     # orbit's, the facade's, the rectified frame's, the ring's, the
-    # dataset's and the checkpoint drive's
+    # dataset's, the checkpoint drive's and the host engine's three
     for counts in (multilevel_phase(torch, np, z, facade),
                    facade_phase(torch, np, facade),
                    rectified_phase(torch, np, facade)):
         for name in launches:
             launches[name] += counts[name]
-    ring_launches, ring_map = ring_phase(torch, np, ring)
+    ring_launches, ring_eng = ring_phase(torch, np, ring)
     launches["fast_detect_and_smooth"] += ring_launches
-    closure_phase(torch, np, ring, ring_map)
+    closure_phase(torch, np, ring, ring_eng.map_state)
     dataset = np.load(DATASET_FIXTURE)
     for counts in (dataset_phase(torch, np, dataset, ring),
                    checkpoint_phase(torch, np, z, dataset)):
         for name in launches:
             launches[name] += counts[name]
+    # the host engine: the console, the orbit at full width, a recording
+    # of the console's frames replayed; then the analysis consumers
+    host = np.load(HOST_FIXTURE)
+    console_counts, live = host_console_phase(torch, np, host)
+    for counts in (console_counts,
+                   host_full_width_phase(torch, np, z, host),
+                   record_replay_phase(torch, np, live)):
+        for name in launches:
+            launches[name] += counts[name]
+    analysis_phase(torch, np, ring_eng)
 
     main_case = report["180x320 frame"]   # the main path's shape and data
     pallas = "mageslam_tpu/ops/fast_pallas.py"

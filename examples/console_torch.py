@@ -2,7 +2,8 @@
 
 The golden path of ``examples/console.py`` on ``mageslam_tpu_torch``:
 frames come off disk through the port's ``FramePump`` (or from the
-synthetic world), go one by one into ``MageSlamTorchFused``, and
+synthetic world), go one by one into ``MageSlamTorchFused`` (with
+``--host-engine``, the host-orchestrated ``MageSlamTorch``), and
 ``fossilize`` gives the trajectory, written as the fossil CSV (4x4
 world-from-camera matrices) and optionally in TUM format.  With ground
 truth, the Sim(3)-aligned ATE is printed.  The engine runs on the CUDA
@@ -11,10 +12,12 @@ card, and raises without one; ``--cpu`` asks for the CPU.
 Usage:
   python examples/console_torch.py --dataset /path/to/euroc_or_tum_or_dir \\
       [--width 320 --height 180] [--csv fossil.csv] [--tum traj.tum] [--cpu]
+      [--host-engine]
   python examples/console_torch.py --synthetic 80   # no dataset needed
 
 ``run(parse_args([...]))`` drives the same code from Python and returns
-what it measured.
+what it measured.  Each ``process_frame`` and the ``fossilize`` call run
+inside a scope of ``utils/tracing.PROFILER`` (off unless enabled).
 """
 
 from __future__ import annotations
@@ -71,18 +74,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run the engine on the CPU instead of the card")
+    ap.add_argument("--host-engine", action="store_true",
+                    help="use the host-orchestrated engine (MageSlamTorch) "
+                         "instead of the fused device engine")
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace, determinator=None) -> dict:
     """Drive one session; returns the engine, results, fossil, frame
     count, tracked count, the ATE (or None), the host clock after each
-    frame and the frame source ("native", "python" or "synthetic")."""
+    frame and the frame source ("native", "python" or "synthetic").
+    ``determinator`` (``utils/determinism.py``) receives the engine's
+    checkpoint streams."""
     import numpy as np
     from mageslam_tpu_torch.geometry.camera import CameraCalibration
     from mageslam_tpu_torch.io.evaluation import ate_rmse
     from mageslam_tpu_torch.runtime.fused import MageSlamTorchFused
     from mageslam_tpu_torch.runtime.results import TrackingState
+    from mageslam_tpu_torch.runtime.slam import MageSlamTorch
+    from mageslam_tpu_torch.utils.tracing import scope_timer
 
     seq = None
     if args.dataset:
@@ -99,8 +109,9 @@ def run(args: argparse.Namespace) -> dict:
         cal = CameraCalibration.pinhole(fx, fx, args.width / 2,
                                         args.height / 2, args.width,
                                         args.height)
-    engine = MageSlamTorchFused(fast_settings(), cal, seed=1,
-                                device="cpu" if args.cpu else None)
+    engine = (MageSlamTorch if args.host_engine else MageSlamTorchFused)(
+        fast_settings(), cal, seed=1, device="cpu" if args.cpu else None,
+        determinator=determinator)
 
     if seq is not None:
         from mageslam_tpu_torch.io.native_loader import FramePump
@@ -126,10 +137,14 @@ def run(args: argparse.Namespace) -> dict:
     for i, img in frames:
         ts = (float(seq.timestamps[i] - seq.timestamps[0])
               if seq is not None else i / args.fps)
-        engine.process_frame(img, timestamp=ts)
+        with scope_timer("console/process_frame"):
+            engine.process_frame(img, timestamp=ts)
         stamps.append(time.perf_counter())
         count += 1
-    results = engine.flush()
+    # the host engine resolves every frame as it goes; the fused facade's
+    # results resolve at its flush
+    results = (engine.flush() if hasattr(engine, "flush")
+               else engine._results)
     elapsed = time.perf_counter() - t0
     tracked = sum(r.state == TrackingState.TRACKING
                   for r in results.values())
@@ -138,7 +153,8 @@ def run(args: argparse.Namespace) -> dict:
           f"keyframes={engine.num_keyframes}, "
           f"map points={engine.num_map_points}")
 
-    fossil = engine.fossilize()
+    with scope_timer("console/fossilize"):
+        fossil = engine.fossilize()
     fossil.export_csv(args.csv)
     print(f"[console] fossil CSV -> {args.csv} "
           f"({len(fossil.frame_ids)} poses)")

@@ -3,9 +3,9 @@
 Port of ``mageslam_tpu/bow/vocab.py``: a 2-level k-majority tree (6 x 6
 leaves) trained from the pooled first frames, tf-idf weights, L1
 signatures.  The centroid seeds are the only random draw:
-``train_vocabulary`` draws them from a ``torch.Generator``, and
-``train_vocabulary_from_samples`` is deterministic given them (see
-``solvers/sampling.py``).
+``train_vocabulary`` draws them from a ``torch.Generator``,
+``train_vocabulary_sampled`` through a sampler (``solvers/sampling.py``),
+and ``train_vocabulary_from_samples`` is deterministic given them.
 """
 
 from __future__ import annotations
@@ -95,18 +95,26 @@ def train_vocabulary_from_samples(desc, valid, init_idx,
 
 def train_vocabulary(gen: torch.Generator, desc, valid,
                      iters: int = 12) -> Vocabulary:
+    """``train_vocabulary_sampled`` drawing from ``gen``."""
+    return train_vocabulary_sampled(sampling.generator_sampler(gen), desc,
+                                    valid, iters)
+
+
+def train_vocabulary_sampled(sampler, desc, valid,
+                             iters: int = 12) -> Vocabulary:
     """Draw level-1 seeds, cluster, then draw each sub-tree's seeds from
-    its own cluster (the JAX sampling weights) and cluster again."""
+    its own cluster (the JAX sampling weights) and cluster again.  Every
+    draw is one ``sampler(p, 1, BRANCH)`` call (``solvers/sampling.py``):
+    the level-1 seeds first, then one per level-1 cluster in order."""
     p = valid.to(torch.float32) / torch.clamp(valid.to(torch.float32).sum(),
                                               min=1.0)
-    seed1 = sampling.choice_without_replacement(gen, p, 1, BRANCH)[0]
+    seed1 = sampler(p, 1, BRANCH)[0]
     _, assign1 = _k_majority(desc, valid, seed1, iters)
     rows = [seed1]
     for c in range(BRANCH):
         mask = (valid & (assign1 == c)).to(torch.float32)
         pc = mask / torch.clamp(mask.sum(), min=1.0)
-        rows.append(sampling.choice_without_replacement(gen, pc, 1,
-                                                        BRANCH)[0])
+        rows.append(sampler(pc, 1, BRANCH)[0])
     return train_vocabulary_from_samples(desc, valid, torch.stack(rows),
                                          iters)
 

@@ -72,18 +72,24 @@ def global_bundle_adjust(m: ms.MapState, huber_delta, max_outlier_error,
 
 
 def engine_global_bundle_adjust(m: ms.MapState, settings, fx: float,
-                                num_steps: int, lam0):
+                                num_steps: int, lam0,
+                                huber_width_px: float | None = None,
+                                max_outlier_px: float | None = None):
+    """Global BA for the engine paths (fossilize, the host engine's loop
+    closure), at the settings' Huber width and outlier gate unless the
+    caller names others (in pixels)."""
     p = settings.parallel
     if p.use_distributed_global_ba or p.use_trajectory_sharding:
         raise NotImplementedError(
             "distributed / trajectory-sharded global BA belong to the "
             "parallel layer, which is not ported yet")
     px = 1.0 / fx
-    hd = float(torch.tensor(settings.bundle_adjust.huber_width * px,
-                            dtype=torch.float32))
-    moe = float(torch.tensor(
-        settings.graph_optimization.max_outlier_error * px,
-        dtype=torch.float32))
+    if huber_width_px is None:
+        huber_width_px = settings.bundle_adjust.huber_width
+    if max_outlier_px is None:
+        max_outlier_px = settings.graph_optimization.max_outlier_error
+    hd = float(torch.tensor(huber_width_px * px, dtype=torch.float32))
+    moe = float(torch.tensor(max_outlier_px * px, dtype=torch.float32))
     return global_bundle_adjust(m, hd, moe, num_steps=num_steps, lam0=lam0)
 
 

@@ -15,8 +15,10 @@ among them.
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or
 raises); a CPU tensor takes the plain version in ``ops/fast.py``.  There is
 no fallback.  The shared library is built with ``nvcc`` from the package's
-own source at first use into ``mageslam_tpu_torch/_build/`` (keyed on a
-hash of the source and flags) and bound with ``ctypes``.
+own source at first use into ``mageslam_tpu_torch/_build/`` and bound with
+``ctypes``.  The library's name hashes the source, the flags, ``nvcc``'s
+version and the host, so a library that a copied checkout carries from
+another machine or compiler is never loaded.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -50,6 +53,7 @@ _launches_by_shape: dict = {}
 _lock = threading.Lock()
 _lib = None
 _taps_loaded: dict = {}
+_host = None
 build_seconds = None   # wall time of the build in this process, if any
 
 
@@ -85,14 +89,35 @@ def nvcc_path() -> str:
     return found
 
 
+def _nvcc_version() -> str:
+    """``nvcc --version`` (empty without a compiler)."""
+    try:
+        return subprocess.run([nvcc_path(), "--version"],
+                              capture_output=True, text=True).stdout
+    except (RuntimeError, OSError):
+        return ""
+
+
+def host_key() -> str:
+    """What a built library depends on besides its source and flags: the
+    compiler's version and the machine it was built on (computed once per
+    process)."""
+    global _host
+    if _host is None:
+        u = platform.uname()
+        _host = "\n".join((_nvcc_version(), u.system, u.node, u.release,
+                           u.machine))
+    return _host
+
+
 def library_path(source: Path = SOURCE) -> Path:
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                         + host_key().encode()).hexdigest()[:16]
     return BUILD_DIR / f"libfast_detect_{key}.so"
 
 
 def build(source: Path = SOURCE, verbose: bool = False) -> Path:
-    """Compile the kernel library if this source/flag hash is not built."""
+    """Compile the kernel library if it is not built under its key."""
     global build_seconds
     out = library_path(source)
     if out.exists():
@@ -131,6 +156,17 @@ def bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def load(source: Path = SOURCE) -> ctypes.CDLL:
+    """Build (if needed) and bind the library of ``source``.  A file under
+    this key that ``ctypes`` cannot load (a truncated build) is built anew;
+    a build that fails raises."""
+    try:
+        return bind(build(source))
+    except OSError:
+        library_path(source).unlink(missing_ok=True)
+        return bind(build(source))
+
+
 def use_library(lib: ctypes.CDLL) -> None:
     """Launch from ``lib`` (from ``bind``) instead of the package's own
     build: how ``tools/bench_fast_kernel.py`` puts the source of another
@@ -145,7 +181,7 @@ def _load():
     global _lib
     with _lock:
         if _lib is None:
-            _lib = bind(build())
+            _lib = load()
     return _lib
 
 

@@ -17,6 +17,12 @@ from mageslam_tpu_torch.geometry import se3
 from mageslam_tpu_torch.mapstore import pose_history as ph
 
 
+def engine_history(engine) -> ph.PoseHistory:
+    """The pose history of a host engine or a fused facade."""
+    hist = getattr(engine, "_history", None)
+    return hist if hist is not None else engine.state.history
+
+
 @dataclasses.dataclass(frozen=True)
 class FossilizedMap:
     frame_ids: np.ndarray
@@ -43,10 +49,12 @@ class FossilizedMap:
 
     @staticmethod
     def from_engine(engine) -> "FossilizedMap":
-        """From a facade (``MageSlamTorchFused``) as it stands, without the
-        final global BA that ``fossilize`` runs."""
+        """From either engine as it stands, without the final global BA
+        that ``fossilize`` runs: the host engine (``MageSlamTorch``) keeps
+        its pose history in ``_history``, the fused facade
+        (``MageSlamTorchFused``) in its engine state."""
         return FossilizedMap.from_state(engine.map_state,
-                                        engine.state.history)
+                                        engine_history(engine))
 
     def pose_for_frame(self, frame_id: int) -> Optional[np.ndarray]:
         i = np.searchsorted(self.frame_ids, frame_id)

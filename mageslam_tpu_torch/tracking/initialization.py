@@ -69,10 +69,19 @@ def sampling_weights(f0, f1, s):
 
 def sample_init_draws(gen: torch.Generator, f0, f1,
                       s: MonoMapInitializationSettings) -> InitDraws:
+    return draw_init(sampling.generator_sampler(gen), f0, f1, s)
+
+
+def draw_init(sampler, f0, f1, s: MonoMapInitializationSettings
+              ) -> InitDraws:
+    """The attempt's minimal sets through ``sampler(p, num, k)``
+    (``solvers/sampling.py``): the 8-point pool, the 5-point pool, then
+    the homography's 4-point sets."""
     _, p = sampling_weights(f0, f1, s)
-    e8, e5 = essential.essential_samples(gen, p, E_HYPOTHESES)
-    return InitDraws(e8, e5, homography.homography_samples(gen, p,
-                                                           H_HYPOTHESES))
+    return InitDraws(
+        sampler(p, E_HYPOTHESES, 8),
+        sampler(p, essential.num_five_point(E_HYPOTHESES), 5),
+        sampler(p, H_HYPOTHESES, 4))
 
 
 def attempt_initialization(draws: InitDraws, f0: FrameFeatures,

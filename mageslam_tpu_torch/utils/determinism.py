@@ -1,4 +1,5 @@
-"""A copy of ``mageslam_tpu/utils/determinism.py`` (it holds no JAX).
+"""A copy of ``mageslam_tpu/utils/determinism.py`` (it holds no JAX);
+``value_hash`` also takes torch tensors, on any device.
 
 Determinism harness: hash pipeline intermediates, record/replay compare.
 
@@ -21,13 +22,24 @@ from collections import defaultdict
 from typing import Any
 
 import numpy as np
+import torch
+
+
+def to_host(v: Any) -> Any:
+    """A torch tensor as a numpy array on the host (its dtype kept); any
+    other value as it is."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return v
 
 
 def value_hash(*values: Any) -> int:
-    """CRC32 over the concatenated bytes of the values (order-sensitive)."""
+    """CRC32 over the concatenated bytes of the values (order-sensitive).
+    A tensor hashes as the numpy array of its values, so equal values of
+    equal dtype and shape hash alike in both packages."""
     crc = 0
     for v in values:
-        a = np.asarray(v)
+        a = np.asarray(to_host(v))
         crc = zlib.crc32(a.tobytes(), crc)
         crc = zlib.crc32(str(a.shape).encode(), crc)
     return crc & 0xFFFFFFFF

@@ -15,7 +15,16 @@ The kernel works on 32x16 tiles, takes a 16-byte path where the row length
 is a multiple of four and the pointers are aligned, and skips the arc scan
 for pixels that fail an exact antipodal-pair test; the cases below cover
 both sides of each of those choices.
+
+The library's name and its build (``fast_cuda.library_path``, ``load``)
+are tested here on the CPU as well, with a stand-in ``nvcc`` that links a
+stub of the kernel's C interface with the host's C compiler.
 """
+
+import os
+import shutil
+import stat
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -163,3 +172,105 @@ def test_cuda_multilevel_frontend_matches_cpu():
     for name in ("valid", "octave"):
         assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name))
     assert float((fg.uv.cpu() - fc.uv).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the library's key and build (CPU)
+
+_STUB = """
+int fast_set_taps(void *t, void *s) { return 0; }
+int fast_detect_and_smooth(void *a, void *b, void *c, int h, int w, float t,
+                           void *s) { return 0; }
+int fast_detect(void *a, void *b, int h, int w, float t, void *s)
+{ return 0; }
+int fast_launch_floor(int h, int w, void *s) { return 0; }
+"""
+
+
+@pytest.fixture
+def fake_build(monkeypatch, tmp_path):
+    """A build directory of its own, a stand-in ``nvcc`` under
+    ``CUDA_HOME`` that links a stub of the kernel's C interface (and logs
+    each build), and a version probe the test sets."""
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        pytest.skip("needs a C compiler to link the stub library")
+    (tmp_path / "stub.c").write_text(_STUB)
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    log = tmp_path / "builds.log"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "out=\n"
+        "while [ $# -gt 0 ]; do\n"
+        '  if [ "$1" = "-o" ]; then out="$2"; shift; fi; shift\n'
+        "done\n"
+        f'echo "$out" >> {log}\n'
+        f'exec {cc} -shared -fPIC -o "$out" {tmp_path / "stub.c"}\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(fast_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(fast_cuda, "_host", None)
+    version = {"text": "nvcc 12.9", "probes": 0}
+
+    def probe():
+        version["probes"] += 1
+        return version["text"]
+    monkeypatch.setattr(fast_cuda, "_nvcc_version", probe)
+    return version, log
+
+
+def _rekey(monkeypatch, version, text=None, node=None):
+    if text is not None:
+        version["text"] = text
+    if node is not None:
+        u = fast_cuda.platform.uname()
+        monkeypatch.setattr(fast_cuda.platform, "uname",
+                            lambda: u._replace(node=node))
+    monkeypatch.setattr(fast_cuda, "_host", None)
+
+
+def test_library_key_follows_compiler_and_host(monkeypatch, fake_build):
+    version, _ = fake_build
+    own = fast_cuda.library_path()
+    assert fast_cuda.library_path() == own      # stable within a process
+    assert version["probes"] == 1               # probed once
+    _rekey(monkeypatch, version, text="nvcc 12.8")
+    other_compiler = fast_cuda.library_path()
+    _rekey(monkeypatch, version, text="nvcc 12.9", node="another-host")
+    other_host = fast_cuda.library_path()
+    assert len({own, other_compiler, other_host}) == 3
+    _rekey(monkeypatch, version, node=fast_cuda.platform.uname().node
+           + "-x")
+    assert fast_cuda.library_path() not in (own, other_compiler, other_host)
+
+
+def test_library_under_another_key_is_never_loaded(monkeypatch, fake_build):
+    version, log = fake_build
+    foreign_lib = fast_cuda.load()              # built under nvcc 12.9
+    foreign = Path(foreign_lib._name)
+    _rekey(monkeypatch, version, text="nvcc 12.8")
+    lib = fast_cuda.load()
+    assert Path(lib._name) == fast_cuda.library_path() != foreign
+    assert log.read_text().count("\n") == 2    # built anew, not reused
+    # with no compiler at all, the foreign library is still not loaded
+    os.remove(lib._name)
+    monkeypatch.setenv("CUDA_HOME", str(Path(log).parent / "nowhere"))
+    monkeypatch.setenv("PATH", str(Path(log).parent / "nowhere"))
+    monkeypatch.setattr(fast_cuda.Path, "exists",
+                        lambda p: False if p.name == "nvcc"
+                        else os.path.exists(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fast_cuda.load()
+    assert foreign.exists()
+
+
+def test_unloadable_library_under_this_key_is_built_anew(fake_build):
+    _, log = fake_build
+    path = fast_cuda.library_path()
+    path.parent.mkdir(parents=True)
+    path.write_bytes(b"truncated")              # ctypes cannot load it
+    lib = fast_cuda.load()
+    assert Path(lib._name) == path
+    assert path.read_bytes()[:4] == b"\x7fELF"
+    assert log.read_text().strip() != ""        # the build ran

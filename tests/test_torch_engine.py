@@ -43,6 +43,7 @@ from mageslam_tpu_torch.mapstore import volume_of_interest
 from mageslam_tpu_torch.runtime import device_engine as de
 from mageslam_tpu_torch.runtime.fused import MageSlamTorchFused
 from mageslam_tpu_torch.runtime.results import TrackingState
+from mageslam_tpu_torch.runtime.slam import MageSlamTorch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from make_torch_fixture import fixture_settings  # noqa: E402
@@ -227,12 +228,13 @@ def test_relocalization_branch_raises(fixture):
 
 @pytest.mark.parametrize("build", [
     lambda s, cal: MageSlamTorchFused(s, cal),
+    lambda s, cal: MageSlamTorch(s, cal),
     lambda s, cal: de.DeviceEngine(s, cal),
     lambda s, cal: de.empty_state(s),
     lambda s, cal: volume_of_interest.compute_volume_of_interest(
         np.tile([1.0, 0, 0, 0, 0, 0, 0], (2, 1)), np.ones(2), np.full(2, 3.0),
         np.ones(2, bool)),
-], ids=["MageSlamTorchFused", "DeviceEngine", "empty_state",
+], ids=["MageSlamTorchFused", "MageSlamTorch", "DeviceEngine", "empty_state",
         "compute_volume_of_interest"])
 def test_entry_points_default_to_the_card(build, fixture, monkeypatch):
     """With no ``device`` argument the entry points ask for the CUDA card;

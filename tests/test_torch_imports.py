@@ -24,12 +24,18 @@ def test_import_leaves_jax_unloaded():
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
     for m in ("fuser.imu", "device", "io.datasets", "io.native_loader",
-              "io.serialization", "io.synthetic"):
+              "io.serialization", "io.synthetic", "runtime.slam",
+              "tracking.keyframe_decision", "io.recording", "utils.xray",
+              "utils.tracing", "runtime.skeleton_key",
+              "mapstore.denoising"):
         assert f"mageslam_tpu_torch.{m}" in modules
     # the console too, as a script would load it
+    # the console's --host-engine flag picks the host engine's class
     code = ("import sys, importlib, runpy; import mageslam_tpu_torch; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
-            f"runpy.run_path({str(CONSOLE)!r}, run_name='console'); "
+            f"c = runpy.run_path({str(CONSOLE)!r}, run_name='console'); "
+            "assert c['parse_args'](['--host-engine']).host_engine; "
+            "assert not c['parse_args']([]).host_engine; "
             "print('jax' in sys.modules or 'mageslam_tpu' in sys.modules)")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)

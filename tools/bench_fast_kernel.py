@@ -43,7 +43,7 @@ def main(argv) -> int:
     for arg in argv:
         label, _, source = arg.partition("=")
         sources[label] = Path(source)
-    libs = {label: fast_cuda.bind(fast_cuda.build(source))
+    libs = {label: fast_cuda.load(source)
             for label, source in sources.items()}
     smi = cs.run_text(["nvidia-smi", "--query-gpu=name,power.limit",
                        "--format=csv,noheader"])
