@@ -111,6 +111,26 @@ Phases (each raises on failure, so any failure exits non-zero):
     snapshot of the ring engine, whose counts must equal the engine's; an
     ``Xray`` capture of one local-BA window and its JSON size.
 
+18. the parallel layer (``mageslam_tpu_torch/parallel``), against the JAX
+    package's results in ``tests/data/torch_parallel.npz`` and within its
+    ``tol/*`` tolerances, each step timed on the host clock between
+    device syncs: (a) distributed BA on an 8-shard mesh of ``cuda:0``, the
+    certification problem (``multiprocess.run_certification``) and the
+    ring drive's final map (8192 point slots) against the single-device
+    BA on the card (poses 1e-4, points 1e-3, MSE relative 1e-3), directly
+    and through ``engine_global_bundle_adjust``; (b) trajectory sharding:
+    ``plan_from_map`` on the JAX engine's stored ring map (halo 2 and 1)
+    with integer outputs equal to JAX's, the sharded solve (halo 2, 32
+    tethers, min covisibility 5, 6 steps) within 3x the single-device MSE
+    and within tolerance of JAX's, then the ring drive's map with the
+    CPU's plan as the integers' reference; (c) ``spawn_certification(2,
+    4)``, two processes over gloo with their shards on the card,
+    bit-identical to each other and to the in-process run of (a); (d) a
+    fleet of 8 sessions on ``cuda:0`` at ``ref_settings()`` capacities
+    over 30 frames of 8 synthetic worlds: each tracks at least the JAX
+    fleet's count minus 3, stream 0 equals a solo ``DeviceEngine`` in every
+    slot of its output rows, 240 launches of ``fast_detect_and_smooth``.
+
 The facade runs at its default ``fetch_every`` (8): results resolve through
 its fetch ring, and the prior provider, events and fuser fences follow its
 timing; the phase holds the frames resolved per call and the frames that
@@ -142,6 +162,7 @@ RING_FIXTURE = ROOT / "tests" / "data" / "torch_ring150.npz"
 FACADE_FIXTURE = ROOT / "tests" / "data" / "torch_facade.npz"
 DATASET_FIXTURE = ROOT / "tests" / "data" / "torch_dataset.npz"
 HOST_FIXTURE = ROOT / "tests" / "data" / "torch_host.npz"
+PARALLEL_FIXTURE = ROOT / "tests" / "data" / "torch_parallel.npz"
 MINI_SEQ = ROOT / "tests" / "data" / "mini_seq"
 RING_SEQ = ROOT / "tests" / "data" / "ring_seq"
 RING_BLACKOUT = range(130, 138)
@@ -1451,13 +1472,316 @@ def analysis_phase(torch, np, ring_eng):
           f"{size / 1e3:.1f} kB of JSON", flush=True)
 
 
+def _max_diffs(np, poses, points, want_poses, want_points, v, mv):
+    """Max |difference| of the live keyframe poses and map points."""
+    return (float(np.abs(np.asarray(poses)[v] - want_poses[v]).max()),
+            float(np.abs(np.asarray(points)[mv] - want_points[mv]).max()))
+
+
+def _perturbed(torch, np, prob, seed, pose_noise, point_noise,
+               dtype=None):
+    """``prob`` with its free keyframe poses retracted and its live points
+    moved by seeded normal noise, in ``dtype`` (default float32)."""
+    from mageslam_tpu_torch.geometry import se3
+    g = np.random.default_rng(seed)
+    K, L = prob.kf_poses.shape[0], prob.points.shape[0]
+    dev = prob.kf_poses.device
+    xi = torch.as_tensor(g.normal(0, pose_noise, (K, 6)),
+                         dtype=torch.float32, device=dev)
+    dx = torch.as_tensor(g.normal(0, point_noise, (L, 3)),
+                         dtype=torch.float32, device=dev)
+    p = prob._replace(
+        kf_poses=torch.where(prob.kf_fixed[:, None], prob.kf_poses,
+                             se3.pose_retract(prob.kf_poses, xi)),
+        points=torch.where(prob.point_valid[:, None], prob.points + dx,
+                           prob.points))
+    dtype = dtype or torch.float32
+    return p._replace(**{f: v.to(dtype) for f, v in p._asdict().items()
+                         if v.dtype == torch.float32})
+
+
+def _moved(prob, res):
+    """How far a solve moved the free keyframe poses and the live points
+    from ``prob``'s start (max |difference|)."""
+    return (float((res.kf_poses - prob.kf_poses)[~prob.kf_fixed]
+                  .abs().max()),
+            float((res.points - prob.points)[prob.point_valid].abs().max()))
+
+
+def parallel_phase(torch, np, ring_eng, z):
+    """The parallel layer on the card: (a) distributed BA, (b) trajectory
+    sharding, (c) the multi-process certification, (d) the session fleet
+    at full width.  Returns the fleet drive's kernel launches."""
+    import dataclasses
+    from mageslam_tpu_torch import MageSlamSettings, convert
+    from mageslam_tpu_torch.io.synthetic import (FLEET_SEED, fleet_frames,
+                                                 frame_crcs)
+    from mageslam_tpu_torch.mapping import global_ba
+    from mageslam_tpu_torch.mapstore.map_state import MapState
+    from mageslam_tpu_torch.ops import fast_cuda
+    from mageslam_tpu_torch.parallel import distributed_ba as dba
+    from mageslam_tpu_torch.parallel import multiprocess as mp
+    from mageslam_tpu_torch.parallel import trajectory_sharding as ts
+    from mageslam_tpu_torch.parallel.fleet import SlamFleet, stream_seed
+    from mageslam_tpu_torch.runtime import device_engine as de
+    from mageslam_tpu_torch.solvers.bundle_adjust import bundle_adjust
+
+    tol = {k[4:]: float(z[k]) for k in z.files if k.startswith("tol/")}
+    mesh = dba.make_mesh(devices=["cuda:0"] * 8)
+
+    def close_ba(a, b, what, atol=(1e-4, 1e-3, 1e-3)):
+        dp = float((a.kf_poses - b.kf_poses).abs().max())
+        dx = float((a.points - b.points).abs().max())
+        rel = abs(float(a.mean_sq_error) / float(b.mean_sq_error) - 1.0)
+        if not (dp <= atol[0] and dx <= atol[1] and rel <= atol[2]):
+            raise AssertionError(f"parallel: {what}: poses {dp}, points "
+                                 f"{dx}, MSE relative {rel}")
+        return f"poses {dp:.2e}, points {dx:.2e}, MSE rel {rel:.2e}"
+
+    def moved_well(prob, res, what):
+        # a comparison means something only if the solve moved the map by
+        # well over its tolerance: ten times the float32 one
+        mp_, mx = _moved(prob, res)
+        if not (mp_ >= 1e-3 and mx >= 1e-2):
+            raise AssertionError(f"parallel: {what}: single-device BA moved "
+                                 f"poses {mp_}, points {mx} only")
+        return f"moved poses {mp_:.2e}, points {mx:.2e}"
+
+    # (a) distributed BA: the certification problem and the ring's map
+    cert, t_cert = timed(torch, lambda: mp.run_certification(mesh),
+                         warm=True)
+    for kind in ("standalone", "engine"):
+        for q, t in (("poses", "cert_poses"), ("points", "cert_points")):
+            d = float(np.abs(cert[f"{kind}_{q}"]
+                             - z[f"cert_{kind}_{q}"]).max())
+            if not d <= tol[t]:
+                raise AssertionError(f"parallel: certification {kind} {q} "
+                                     f"{d} from JAX's (tolerance {tol[t]})")
+        rel = abs(float(cert[f"{kind}_mse"])
+                  / float(z[f"cert_{kind}_mse"]) - 1.0)
+        if not (rel <= tol["cert_mse_rel"]
+                and float(cert[f"{kind}_mse"]) < 1e-6):
+            raise AssertionError(f"parallel: certification {kind} MSE "
+                                 f"{float(cert[f'{kind}_mse'])}")
+    # the certification map starts near its solution: perturb it first
+    m_cert, s_cert = mp.certification_map(device="cuda:0")
+    prob = _perturbed(torch, np, global_ba.build_global_problem(m_cert)
+                      .problem, 11, 0.03, 0.05)
+    cert_single = bundle_adjust(prob, 0.01, 0.02, num_steps=6)
+    cert_dist = dba.distributed_bundle_adjust(
+        dba.shard_problem(prob, mesh), 0.01, 0.02, mesh, num_steps=6)
+    cert_err = (close_ba(cert_dist, cert_single, "certification") + ", "
+                + moved_well(prob, cert_single, "certification"))
+
+    m = ring_eng.map_state
+    s = ring_eng.settings
+    fx = float(ring_eng.cal.fx)
+    px = 1.0 / fx
+    hd = float(np.float32(s.bundle_adjust.huber_width * px))
+    moe = float(np.float32(s.graph_optimization.max_outlier_error * px))
+    rprob = global_ba.build_global_problem(m).problem
+    r_single, t_single = timed(torch, lambda: bundle_adjust(
+        rprob, hd, moe, num_steps=6), warm=True)
+    rsp = dba.shard_problem(rprob, mesh)
+    r_dist, t_dist = timed(torch, lambda: dba.distributed_bundle_adjust(
+        rsp, hd, moe, mesh, num_steps=6), warm=True)
+    ring_err = close_ba(r_dist, r_single, "ring map")
+    ring_mv = _moved(rprob, r_single)
+    # float32 sums in another order differ by the map's conditioning; in
+    # float64 the two solves of the perturbed map agree to rounding, so a
+    # dropped shard or a tether counted twice would show
+    rp64 = _perturbed(torch, np, rprob, 11, 0.03, 0.05, torch.float64)
+    r64_single = bundle_adjust(rp64, hd, moe, num_steps=6)
+    r64_dist = dba.distributed_bundle_adjust(
+        dba.shard_problem(rp64, mesh), hd, moe, mesh, num_steps=6)
+    ring64_err = (close_ba(r64_dist, r64_single, "ring map in float64",
+                           atol=(1e-7, 1e-7, 1e-9)) + ", "
+                  + moved_well(rp64, r64_single, "ring map in float64"))
+    s_on = s.replace(parallel=dataclasses.replace(
+        s.parallel, use_distributed_global_ba=True))
+    engine_ba = global_ba.engine_global_bundle_adjust
+    (m_on, _), t_eng = timed(torch, lambda: engine_ba(
+        m, s_on, fx, num_steps=6, lam0=1e-4, mesh=mesh), warm=True)
+    (m_off, _), t_eng1 = timed(torch, lambda: engine_ba(
+        m, s, fx, num_steps=6, lam0=1e-4), warm=True)
+    v, mv = m.kf_valid.cpu().numpy(), m.mp_valid.cpu().numpy()
+    dp, dx = _max_diffs(np, m_on.kf_pose.cpu(), m_on.mp_pos.cpu(),
+                        m_off.kf_pose.cpu().numpy(),
+                        m_off.mp_pos.cpu().numpy(), v, mv)
+    if not (dp <= 1e-4 and dx <= 1e-3):
+        raise AssertionError(f"parallel: engine-routed distributed BA off "
+                             f"single-device: poses {dp}, points {dx}")
+    print(f"[parallel a] distributed BA on 8 shards of cuda:0: "
+          f"certification perturbed against the card's single-device BA "
+          f"{cert_err}, "
+          f"against JAX's stored certification within the fixture's "
+          f"tolerances (MSE {float(cert['standalone_mse']):.4e}), "
+          f"run_certification {t_cert:.1f} ms; ring map ({m.kf_pose.shape[0]}"
+          f" keyframe slots, {m.mp_pos.shape[0]} point slots, "
+          f"{int(v.sum())} / {int(mv.sum())} live): {ring_err} (single-"
+          f"device moved poses {ring_mv[0]:.2e}, points {ring_mv[1]:.2e}); "
+          f"perturbed in float64: {ring64_err}; 6 LM steps "
+          f"{t_dist:.1f} ms distributed against {t_single:.1f} ms "
+          f"single-device; engine_global_bundle_adjust distributed "
+          f"{t_eng:.1f} ms against single {t_eng1:.1f} ms (poses {dp:.2e}, "
+          f"points {dx:.2e})", flush=True)
+
+    # (b) trajectory sharding: the JAX engine's stored ring map, then the
+    # ring drive's final map
+    jm = convert.map_from_npz(z, device="cuda:0")
+    js = MageSlamSettings.from_json(str(z["map_settings_json"]))
+    jfx = float(z["map_cal"][0])
+    for h, kw in ((2, dict(min_covis=100000)), (1, dict(min_covis=1))):
+        plan, teth, perm = ts.plan_from_map(jm, 8, halo=h, **kw)
+        p = f"plan{h}_"
+        got = {f: getattr(plan, f) for f in ("land_perm", "block_start",
+                                             "n_dropped_obs",
+                                             "n_dropped_points")}
+        got.update({f"problem/{f}": getattr(plan.problem, f) for f in
+                    ("point_valid", "obs_kf", "obs_valid", "kf_fixed")})
+        got.update({f"tethers/{f}": getattr(teth, f) for f in
+                    ("i", "j", "ttype", "n_pairs")})
+        got["perm"] = perm
+        for k, t in got.items():
+            if not np.array_equal(t.cpu().numpy(), z[p + k]):
+                raise AssertionError(f"parallel: plan halo {h}: {k} "
+                                     "differs from JAX's")
+    s2 = js.replace(parallel=dataclasses.replace(
+        js.parallel, trajectory_halo=2, trajectory_max_tethers=32,
+        trajectory_tether_min_covis=5))
+    (jm2, jres, info), t_ts = timed(
+        torch, lambda: ts.trajectory_sharded_global_ba(jm, s2, jfx, mesh,
+                                                       num_steps=6),
+        warm=True)
+    jv, jmv = z["map/kf_valid"], z["map/mp_valid"]
+    dp, dx = _max_diffs(np, jm2.kf_pose.cpu(), jm2.mp_pos.cpu(),
+                        z["ts_kf_pose"], z["ts_mp_pos"], jv, jmv)
+    ok = dp <= tol["ts_poses"] and dx <= tol["ts_points"]
+    jmse = float(jres.mean_sq_error)
+    rel = abs(jmse / float(z["ts_mse"]) - 1.0)
+    (_, j1), _ = timed(torch, lambda: global_ba.global_bundle_adjust(
+        jm, float(np.float32(js.bundle_adjust.huber_width / jfx)),
+        float(np.float32(js.graph_optimization.max_outlier_error / jfx)),
+        num_steps=6))
+    if not (ok and rel <= tol["ts_mse_rel"]
+            and jmse <= 3.0 * float(j1.mean_sq_error) + 1e-9):
+        raise AssertionError(f"parallel: trajectory-sharded BA on the JAX "
+                             f"map: poses {dp}, points {dx} from JAX's, MSE "
+                             f"{jmse} (JAX {float(z['ts_mse'])}, single "
+                             f"{float(j1.mean_sq_error)})")
+    ts_jax = (f"JAX's stored ring map ({int(jv.sum())} keyframes): plans at "
+              f"halo 2 and 1 equal JAX's, sharded solve {t_ts:.1f} ms, "
+              f"info {info}, MSE {jmse:.4e} (JAX {float(z['ts_mse']):.4e}, "
+              f"single {float(j1.mean_sq_error):.4e}), poses {dp:.2e}, "
+              f"points {dx:.2e} from JAX's")
+    m_cpu = MapState(*[x.cpu() for x in m])
+    plan_g, teth_g, perm_g = ts.plan_from_map(m, 8, halo=2, max_tethers=32,
+                                              min_covis=5)
+    plan_c, teth_c, perm_c = ts.plan_from_map(m_cpu, 8, halo=2,
+                                              max_tethers=32, min_covis=5)
+    pairs = [(plan_g.land_perm, plan_c.land_perm),
+             (plan_g.block_start, plan_c.block_start),
+             (plan_g.n_dropped_obs, plan_c.n_dropped_obs),
+             (plan_g.problem.obs_kf, plan_c.problem.obs_kf),
+             (plan_g.problem.obs_valid, plan_c.problem.obs_valid),
+             (teth_g.i, teth_c.i), (teth_g.j, teth_c.j),
+             (teth_g.weight, teth_c.weight), (perm_g, perm_c)]
+    if not all(torch.equal(a.cpu(), b) for a, b in pairs):
+        raise AssertionError("parallel: the ring map's plan on the card "
+                             "differs from the CPU's")
+    s3 = s.replace(parallel=dataclasses.replace(
+        s.parallel, trajectory_halo=2, trajectory_max_tethers=32,
+        trajectory_tether_min_covis=5))
+    (_, rres, rinfo), t_rts = timed(
+        torch, lambda: ts.trajectory_sharded_global_ba(m, s3, fx, mesh,
+                                                       num_steps=6),
+        warm=True)
+    rmse = float(rres.mean_sq_error)
+    if not (np.isfinite(rmse)
+            and rmse <= 3.0 * float(r_single.mean_sq_error) + 1e-9):
+        raise AssertionError(f"parallel: trajectory-sharded BA on the ring "
+                             f"map: MSE {rmse} against single "
+                             f"{float(r_single.mean_sq_error)}")
+    print(f"[parallel b] trajectory sharding on 8 shards of cuda:0: "
+          f"{ts_jax}; the ring drive's map: plan equal to the CPU's, "
+          f"sharded solve {t_rts:.1f} ms, info {rinfo}, MSE {rmse:.4e} "
+          f"(single-device {float(r_single.mean_sq_error):.4e})", flush=True)
+
+    # (c) two processes over gloo, four shards each on the card
+    t0 = time.perf_counter()
+    results, logs = mp.spawn_certification(2, 4, timeout=300.0)
+    t_spawn = time.perf_counter() - t0
+    for key in mp.RESULT_KEYS + ("standalone_mse", "engine_mse"):
+        if not np.array_equal(results[0][key], cert[key]):
+            raise AssertionError(f"parallel: 2-process {key} differs from "
+                                 "the in-process 8-shard run on the card")
+    if not all("global=8 processes=2" in log for log in logs):
+        raise AssertionError(f"parallel: workers did not join: {logs}")
+    print(f"[parallel c] spawn_certification(2, 4) on cuda:0 over gloo: "
+          f"ranks bit-identical to each other and to the in-process run, "
+          f"standalone MSE {float(results[0]['standalone_mse']):.4e}, engine "
+          f"MSE {float(results[0]['engine_mse']):.4e}, {t_spawn:.1f} s",
+          flush=True)
+
+    # (d) eight sessions on the card at full width, 30 frames each
+    n, nf = 8, 30
+    imgs, cal = fleet_frames(n, nf)
+    if not np.array_equal(frame_crcs(imgs), z["fleet8_crc"]):
+        raise AssertionError("parallel: fleet frames differ from JAX's")
+    fs = MageSlamSettings.from_json(str(z["fleet8_settings_json"]))
+    fleet = SlamFleet(fs, cal, mesh=["cuda:0"] * n, seed=FLEET_SEED)
+    fast_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(nf):
+        fleet.process_frames(imgs[f], timestamps=np.full(n, f / 30.0))
+    res = fleet.flush()
+    torch.cuda.synchronize()
+    t_fleet = time.perf_counter() - t0
+    launches = fast_cuda.launch_counts()
+    if launches["fast_detect_and_smooth"] != n * nf:
+        raise AssertionError(f"parallel: fleet launches {launches}")
+    rows = np.stack([res[f] for f in range(nf)], 1)
+    tracked = (rows[..., 0] == de.CODE_TRACKING).sum(1)
+    jtracked = (z["fleet8_rows"][..., 0] == de.CODE_TRACKING).sum(1)
+    if (tracked < jtracked - tol["fleet_tracked"]).any():
+        raise AssertionError(f"parallel: fleet tracked {tracked} against "
+                             f"JAX {jtracked}")
+    eng = de.DeviceEngine(fs, cal, "cuda:0", seed=stream_seed(FLEET_SEED, 0))
+    st = eng.empty_state()
+    solo_frames = torch.as_tensor(imgs[:, 0]).cuda()
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(nf):
+        st, out = eng.step(st, solo_frames[f], float(np.float32(f / 30.0)),
+                           f)
+        outs.append(out)
+    torch.cuda.synchronize()
+    t_solo = time.perf_counter() - t0
+    for f, out in enumerate(outs):
+        if not np.array_equal(out.cpu().numpy(), rows[0, f]):
+            raise AssertionError(f"parallel: fleet stream 0 differs from "
+                                 f"the solo engine at frame {f}")
+    print(f"[parallel d] fleet of {n} sessions on cuda:0 at "
+          f"{fs.capacity.max_features} feature slots, "
+          f"{fs.capacity.max_keyframes} keyframes, "
+          f"{fs.capacity.max_map_points} points, {nf} frames: tracked "
+          f"{tracked.tolist()} (JAX fleet {jtracked.tolist()}), stream 0 "
+          f"equal to a solo engine in every slot, {n * nf / t_fleet:.2f} "
+          f"frames/s in all, {nf / t_fleet:.2f} frames/s per stream, "
+          f"{t_fleet:.1f} s (the solo engine on stream 0's frames: "
+          f"{nf / t_solo:.2f} frames/s), launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE, DATASET_FIXTURE,
-                 HOST_FIXTURE, MINI_SEQ, RING_SEQ):
+                 HOST_FIXTURE, PARALLEL_FIXTURE, MINI_SEQ, RING_SEQ):
         if not path.exists():
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 3
@@ -1519,6 +1843,11 @@ def main() -> int:
         for name in launches:
             launches[name] += counts[name]
     analysis_phase(torch, np, ring_eng)
+    # the parallel layer; its fleet drive counts from 0
+    with np.load(PARALLEL_FIXTURE) as par:
+        counts = parallel_phase(torch, np, ring_eng, par)
+    for name in launches:
+        launches[name] += counts[name]
 
     main_case = report["180x320 frame"]   # the main path's shape and data
     pallas = "mageslam_tpu/ops/fast_pallas.py"

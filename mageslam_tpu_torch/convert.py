@@ -160,10 +160,10 @@ def engine_state_from_jax(st, device=None) -> EngineState:
     return from_jax(EngineState, st, device)
 
 
-def engine_state_from_npz(z, prefix: str, device=None) -> EngineState:
-    """An ``EngineState`` from an ``.npz`` that holds each leaf of a JAX
-    one under ``prefix`` + its slash-joined field path (``map/kf_pose``),
-    as the fixture tools write them."""
+def _namespace_from_npz(z, prefix: str) -> types.SimpleNamespace:
+    """The leaves stored under ``prefix`` + a slash-joined field path
+    (``map/kf_pose``), as the fixture tools write them, as a namespace
+    tree."""
     root = types.SimpleNamespace()
     for key in z.files:
         if not key.startswith(prefix):
@@ -175,7 +175,20 @@ def engine_state_from_npz(z, prefix: str, device=None) -> EngineState:
                 setattr(node, name, types.SimpleNamespace())
             node = getattr(node, name)
         setattr(node, leaf, z[key])
-    return engine_state_from_jax(root, device)
+    return root
+
+
+def engine_state_from_npz(z, prefix: str, device=None) -> EngineState:
+    """An ``EngineState`` from an ``.npz`` that holds each leaf of a JAX
+    one under ``prefix`` + its slash-joined field path (``map/kf_pose``),
+    as the fixture tools write them."""
+    return engine_state_from_jax(_namespace_from_npz(z, prefix), device)
+
+
+def map_from_npz(z, prefix: str = "map/", device=None) -> MapState:
+    """A ``MapState`` from the leaves of a JAX one stored under ``prefix``
+    + field name."""
+    return map_from_jax(_namespace_from_npz(z, prefix), device)
 
 
 def calibration_from_jax(cal, device=None) -> CameraCalibration:

@@ -20,6 +20,7 @@ images come back as float32 (H, W) in [0, 255].
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -417,3 +418,33 @@ def render_sequence(world: SyntheticWorld, cal: CameraCalibration,
     """Yields (frame_idx, image, gt_pose7)."""
     for i, p in enumerate(poses):
         yield i, world.render(cal, p, noise=noise, seed=100 + i), p
+
+
+# the session seed (``SlamFleet(seed=)``) of the fleet drives on
+# ``fleet_frames``'s worlds, the same in the JAX package's stored drives
+FLEET_SEED = 3
+
+
+def fleet_frames(n: int, num_frames: int):
+    """(num_frames, n, 180, 320) frames of ``n`` distinct worlds, one per
+    fleet stream, and the rendering calibration: the worlds of the JAX
+    package's fleet test (``SyntheticWorld.create(450, seed=20 + i)``,
+    ``orbit_trajectory(num_frames, radius=2.0, forward=0.01,
+    sweep=0.5 + 0.05 * i)``, frame ``f`` of stream ``i`` rendered with
+    seed ``1000 + 100 i + f``)."""
+    cal = default_calibration()
+    worlds = [SyntheticWorld.create(450, seed=20 + i) for i in range(n)]
+    trajs = [orbit_trajectory(num_frames, radius=2.0, forward=0.01,
+                              sweep=0.5 + 0.05 * i) for i in range(n)]
+    imgs = np.stack([np.stack([worlds[i].render(cal, trajs[i][f],
+                                                seed=1000 + i * 100 + f)
+                               for i in range(n)])
+                     for f in range(num_frames)])
+    return imgs, cal
+
+
+def frame_crcs(imgs: np.ndarray) -> np.ndarray:
+    """CRC-32 of each stream's frames of ``fleet_frames``, in frame
+    order."""
+    return np.array([zlib.crc32(np.ascontiguousarray(imgs[:, i]).tobytes())
+                     for i in range(imgs.shape[1])], np.int64)

@@ -1,9 +1,10 @@
-"""Global bundle adjustment over the whole map (used by fossilize).
+"""Global bundle adjustment over the whole map (fossilize, loop closure).
 
-Port of the single-device half of ``mageslam_tpu/mapping/global_ba.py``.
-Distributed and trajectory-sharded global BA belong to the parallel layer,
-which is not ported: ``engine_global_bundle_adjust`` raises if the
-settings ask for them.
+Port of ``mageslam_tpu/mapping/global_ba.py``.  ``engine_global_bundle_
+adjust`` routes as the JAX package does: trajectory-sharded
+(``parallel/trajectory_sharding.py``) or distributed
+(``parallel/distributed_ba.py``) when the settings ask for it and the mesh
+has enough shards, single-device otherwise.
 """
 
 from __future__ import annotations
@@ -71,18 +72,31 @@ def global_bundle_adjust(m: ms.MapState, huber_delta, max_outlier_error,
     return m2, res
 
 
+def default_mesh_for(m: ms.MapState):
+    """The mesh a parallel global BA takes when the caller names none: the
+    visible cards (or the ranks of a ``torch.distributed`` group) for a map
+    on the card, one CPU shard for a map on the CPU, which then runs
+    single-device as JAX does on one device."""
+    from mageslam_tpu_torch.parallel.distributed_ba import Mesh, make_mesh
+    if m.kf_pose.device.type == "cuda":
+        return make_mesh()
+    return Mesh([m.kf_pose.device])
+
+
 def engine_global_bundle_adjust(m: ms.MapState, settings, fx: float,
                                 num_steps: int, lam0,
                                 huber_width_px: float | None = None,
-                                max_outlier_px: float | None = None):
+                                max_outlier_px: float | None = None,
+                                mesh=None):
     """Global BA for the engine paths (fossilize, the host engine's loop
     closure), at the settings' Huber width and outlier gate unless the
-    caller names others (in pixels)."""
-    p = settings.parallel
-    if p.use_distributed_global_ba or p.use_trajectory_sharding:
-        raise NotImplementedError(
-            "distributed / trajectory-sharded global BA belong to the "
-            "parallel layer, which is not ported yet")
+    caller names others (in pixels).  Trajectory-sharded when
+    ``use_trajectory_sharding`` is on, ``mesh`` (default
+    ``default_mesh_for(m)``) has at least ``min_devices`` shards, K and L
+    divide by the shard count and the live keyframes reach
+    ``trajectory_min_keyframes``; else distributed over landmark blocks
+    when ``use_distributed_global_ba`` is on and the mesh allows; else
+    single-device."""
     px = 1.0 / fx
     if huber_width_px is None:
         huber_width_px = settings.bundle_adjust.huber_width
@@ -90,14 +104,38 @@ def engine_global_bundle_adjust(m: ms.MapState, settings, fx: float,
         max_outlier_px = settings.graph_optimization.max_outlier_error
     hd = float(torch.tensor(huber_width_px * px, dtype=torch.float32))
     moe = float(torch.tensor(max_outlier_px * px, dtype=torch.float32))
+    p = settings.parallel
+    if mesh is None and (p.use_trajectory_sharding
+                         or p.use_distributed_global_ba):
+        mesh = default_mesh_for(m)
+    n = mesh.size if mesh is not None else 1
+    K = m.kf_valid.shape[0]
+    L = m.mp_valid.shape[0]
+    if p.use_trajectory_sharding and n >= p.min_devices \
+            and K % n == 0 and L % n == 0 \
+            and int(m.kf_valid.sum()) >= p.trajectory_min_keyframes:
+        from mageslam_tpu_torch.parallel.trajectory_sharding import \
+            trajectory_sharded_global_ba
+        # a reference defect, ported as it is (ADVICE.md r5, the JAX
+        # package's global_ba.py:106-125): this route takes its Huber width
+        # and outlier gate from the settings, so the caller's
+        # huber_width_px / max_outlier_px (hd, moe above: the loop
+        # closure's) are dropped
+        m2, res, _ = trajectory_sharded_global_ba(
+            m, settings, fx, mesh, num_steps=num_steps, lam0=lam0)
+        return m2, res
+    if p.use_distributed_global_ba and n >= p.min_devices and L % n == 0:
+        return global_bundle_adjust_distributed(
+            m, hd, moe, mesh, num_steps=num_steps, lam0=lam0)
     return global_bundle_adjust(m, hd, moe, num_steps=num_steps, lam0=lam0)
 
 
 def global_ba_to_floor(m: ms.MapState, settings, fx: float, lam0,
                        chunk_steps: int = 10, max_steps: int = 60,
-                       rel_tol: float = 0.01):
+                       rel_tol: float = 0.01, mesh=None):
     """Iterate global BA in chunks until the inlier MSE stops improving
-    by rel_tol (one host read of the MSE per chunk)."""
+    by rel_tol (one host read of the MSE per chunk); ``mesh`` as in
+    ``engine_global_bundle_adjust``."""
     prev = None
     lam = lam0
     total = 0
@@ -105,7 +143,7 @@ def global_ba_to_floor(m: ms.MapState, settings, fx: float, lam0,
     while total < max_steps:
         m, res = engine_global_bundle_adjust(m, settings, fx,
                                              num_steps=chunk_steps,
-                                             lam0=lam)
+                                             lam0=lam, mesh=mesh)
         lam = res.lam
         mse = float(res.mean_sq_error)
         total += chunk_steps
@@ -113,3 +151,23 @@ def global_ba_to_floor(m: ms.MapState, settings, fx: float, lam0,
             break
         prev = mse
     return m, res
+
+
+def global_bundle_adjust_distributed(m: ms.MapState, huber_delta,
+                                     max_outlier_error, mesh,
+                                     num_steps: int = 10, lam0=1e-4,
+                                     max_obs_per_point: int = 12):
+    """Global BA with landmark blocks sharded over ``mesh``
+    (``parallel/distributed_ba.py``).  L must divide by the shard count;
+    capacities are powers of two, so it does.  Every process writes the
+    whole result back: its own blocks and the other processes' gathered."""
+    from mageslam_tpu_torch.parallel import distributed_ba as dba
+    win = build_global_problem(m, max_obs_per_point)
+    sp = dba.shard_problem(win.problem, mesh)
+    res = dba.distributed_bundle_adjust(sp, huber_delta, max_outlier_error,
+                                        mesh, num_steps=num_steps, lam0=lam0)
+    dev = m.kf_pose.device
+    m2 = ms.apply_ba_update(m, win.kf_list, win.kf_list_valid,
+                            res.kf_poses.to(dev), win.mp_list,
+                            win.mp_list_valid, mesh.gather(res.points).to(dev))
+    return m2, res

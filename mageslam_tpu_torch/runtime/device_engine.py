@@ -21,11 +21,11 @@ Work the JAX step runs masked and discards is skipped here where the state
 comes out the same: a loop detection whose candidates all fail their gates
 costs one host read instead of eight relocalizations.
 
-Every setting of the fused engine runs except the parallel layer
-(distributed or trajectory-sharded global BA), for which construction
-raises by name.  Multi-level pyramids run through the frontend and the
-tracking gates; stereo bootstrap, the IMU fuser, pose-prior providers and
-drop-frame pacing live in the facade (``runtime/fused.py``); an external
+Every setting of the fused engine runs, the parallel layer's distributed
+and trajectory-sharded global BA (fossilize) included.  Multi-level
+pyramids run through the frontend and the tracking gates; stereo
+bootstrap, the IMU fuser, pose-prior providers and drop-frame pacing live
+in the facade (``runtime/fused.py``); an external
 pose prior enters ``step`` as ``ext_prior``.  ``undistort_image_pixels``
 is accepted and, as in the JAX engine's step, does not change the step:
 it calls ``extract_features``, which undistorts keypoints; only
@@ -300,14 +300,11 @@ def _map_fingerprints(m: ms.MapState):
 
 
 def check_supported(settings: MageSlamSettings) -> None:
-    """Raise ``NotImplementedError`` for settings this port does not run:
-    only the parallel layer's."""
-    p = settings.parallel
-    for name in ("use_distributed_global_ba", "use_trajectory_sharding"):
-        if getattr(p, name):
-            raise NotImplementedError(
-                f"{name}: distributed / trajectory-sharded global BA (the "
-                "parallel layer) is not ported yet")
+    """Raise ``NotImplementedError`` for settings this port does not run.
+    Every setting of the JAX package runs now, the parallel layer's
+    included (``mapping/global_ba.engine_global_bundle_adjust``), so
+    nothing raises; the fused engine and ``MageSlamTorch`` keep calling
+    this as the one place where such a setting would."""
 
 
 class DeviceEngine:

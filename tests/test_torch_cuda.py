@@ -1,4 +1,5 @@
-"""The hand-written CUDA FAST kernel against its plain PyTorch version.
+"""The hand-written CUDA FAST kernel against its plain PyTorch version,
+and the parallel layer's distributed BA on the card.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 JAX nor ``tests/conftest.py``'s JAX set-up, so they run on a GPU host that
@@ -172,6 +173,30 @@ def test_cuda_multilevel_frontend_matches_cpu():
     for name in ("valid", "octave"):
         assert torch.equal(getattr(fg, name).cpu(), getattr(fc, name))
     assert float((fg.uv.cpu() - fc.uv).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_ba_matches_single_device():
+    """The parallel layer on the card: an 8-shard distributed BA with all
+    shards on ``cuda:0`` against the single-device BA on the card, on the
+    certification map (poses 1e-4, points 1e-3, MSE relative 1e-3, the
+    tolerances of ``tests/test_distributed_ba.py``)."""
+    _need_card()
+    from mageslam_tpu_torch.mapping import global_ba
+    from mageslam_tpu_torch.parallel import distributed_ba as dba
+    from mageslam_tpu_torch.parallel.multiprocess import certification_map
+    from mageslam_tpu_torch.solvers.bundle_adjust import bundle_adjust
+    mesh = dba.make_mesh(devices=["cuda:0"] * 8)
+    m, _ = certification_map(device="cuda:0")
+    problem = global_ba.build_global_problem(m).problem
+    res1 = bundle_adjust(problem, 0.01, 0.02, num_steps=6)
+    resN = dba.distributed_bundle_adjust(dba.shard_problem(problem, mesh),
+                                         0.01, 0.02, mesh, num_steps=6)
+    assert resN.points.device.type == "cuda"
+    assert float(resN.mean_sq_error) == pytest.approx(
+        float(res1.mean_sq_error), rel=1e-3, abs=1e-9)
+    assert float((resN.kf_poses - res1.kf_poses).abs().max()) <= 1e-4
+    assert float((resN.points - res1.points).abs().max()) <= 1e-3
 
 
 # ---------------------------------------------------------------------------

@@ -166,17 +166,13 @@ def test_state_round_trip(fixture):
     ("stereo", "use_stereo_init", True),
 ])
 def test_unsupported_settings_raise(change, fixture):
-    """The parallel layer's settings raise; the fuser and stereo init,
-    which used to raise as well, now build and run a frame (the name and
-    ids are kept so that the test's history stays in one place)."""
+    """The four settings that used to raise (the fuser, stereo init and
+    the parallel layer's two) now build and run a frame (the name and ids
+    are kept so that the test's history stays in one place)."""
     bag, field, value = change
     s = port_settings("fast")
     s = s.replace(**{bag: dataclasses.replace(getattr(s, bag),
                                               **{field: value})})
-    if bag == "parallel":
-        with pytest.raises(NotImplementedError, match=field):
-            MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
-        return
     eng = MageSlamTorchFused(s, fixture_calibration(fixture), device="cpu")
     # the result resolves through the fetch ring, after the call
     assert eng.process_frame(fixture["imgs"][0], timestamp=0.0).state \

@@ -243,14 +243,10 @@ def _bag(bag, field):
 ], ids=["num_levels", "undistort_image_pixels", "stereo", "imu",
         "distributed_ba", "trajectory_sharding", "drop_frames"])
 def test_unported_settings_still_raise(ring, change, named):
-    """The parallel layer still raises, by name.  The other five settings
-    are ported: the facade now builds with each and runs a frame (name and
-    ids kept so that the history stays in one place)."""
+    """Every one of these settings is ported, the parallel layer's two
+    included: the facade builds with each and runs a frame (name and ids
+    kept so that the history stays in one place)."""
     s = change(MageSlamSettings())
-    if named == "parallel":
-        with pytest.raises(NotImplementedError, match=named):
-            MageSlamTorchFused(s, ring_calibration(ring), device="cpu")
-        return
     eng = MageSlamTorchFused(s, ring_calibration(ring), device="cpu")
     eng.process_frame(decode_frames(ring)[0], timestamp=0.0)
     assert eng.result_for(0).state == TrackingState.INITIALIZING

@@ -51,8 +51,10 @@ from mageslam_tpu_torch.bow import vocab as bv
 from mageslam_tpu_torch.config import MageSlamSettings
 from mageslam_tpu_torch.io.datasets import load_dataset
 from mageslam_tpu_torch.io.native_loader import read_image_gray
+from mageslam_tpu_torch.mapping import global_ba
 from mageslam_tpu_torch.mapstore.map_state import MapState
 from mageslam_tpu_torch.mapstore.pose_history import PoseHistory
+from mageslam_tpu_torch.parallel.distributed_ba import make_mesh
 from mageslam_tpu_torch.runtime.results import TrackingState
 from mageslam_tpu_torch.runtime.slam import MageSlamTorch
 from mageslam_tpu_torch.tracking import keyframe_decision as kd
@@ -471,16 +473,52 @@ def test_value_hash_dtypes_as_jax(z):
 
 
 # ---------------------------------------------------------------------------
-# settings the port does not run
+# the parallel layer's settings
 
 @pytest.mark.parametrize("name", ["use_distributed_global_ba",
                                   "use_trajectory_sharding"])
-def test_parallel_settings_raise(name, z):
+def test_parallel_settings_raise(name, z, monkeypatch):
+    """The parallel settings, which used to raise, now build the host
+    engine and run a frame (name and ids kept so that the history stays in
+    one place), with the default mesh made 8 CPU shards."""
+    monkeypatch.setattr(global_ba, "default_mesh_for",
+                        lambda m: make_mesh(devices=["cpu"] * 8))
     s = MageSlamSettings.from_json(str(z["con_settings_json"]))
     s = s.replace(parallel=dataclasses.replace(s.parallel, **{name: True}))
-    with pytest.raises(NotImplementedError, match=name):
-        MageSlamTorch(s, load_dataset(str(MINI_SEQ))
-                      .tracking_calibration(320), device="cpu")
+    seq = load_dataset(str(MINI_SEQ))
+    cal = seq.tracking_calibration(320)
+    eng = MageSlamTorch(s, cal, device="cpu")
+    r = eng.process_frame(read_image_gray(seq.image_paths[0], 320,
+                                          cal.height), 0.0)
+    assert r.state == TrackingState.INITIALIZING
+
+
+def test_fossilize_routes_through_the_parallel_layer(z, ring, monkeypatch):
+    """With distributed global BA on and the default mesh made 8 CPU
+    shards, the host engine's fossilize runs the distributed solver and
+    lands where the JAX host engine's (single-device) fossilize does."""
+    monkeypatch.setattr(global_ba, "default_mesh_for",
+                        lambda m: make_mesh(devices=["cpu"] * 8))
+    calls = []
+    real = global_ba.global_bundle_adjust_distributed
+
+    def wrapped(*a, **k):
+        calls.append(a[3].size)
+        return real(*a, **k)
+    monkeypatch.setattr(global_ba, "global_bundle_adjust_distributed",
+                        wrapped)
+    s, cal, _, _ = _drive_inputs(z, ring, "fossilize")
+    s = s.replace(parallel=dataclasses.replace(
+        s.parallel, use_distributed_global_ba=True))
+    before = _tree(z, "ev_fossilize/before/")
+    eng = MageSlamTorch(s, cal, device="cpu",
+                        sampler_factory=JaxChain(before["key_data"]))
+    load_state(eng, before)
+    fossil = eng.fossilize()
+    assert calls and set(calls) == {8}
+    np.testing.assert_array_equal(fossil.frame_ids, z["con_fossil_ids"])
+    np.testing.assert_allclose(fossil.poses, z["con_fossil_poses"],
+                               atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,9 @@ def test_import_leaves_jax_unloaded():
               "io.serialization", "io.synthetic", "runtime.slam",
               "tracking.keyframe_decision", "io.recording", "utils.xray",
               "utils.tracing", "runtime.skeleton_key",
-              "mapstore.denoising"):
+              "mapstore.denoising", "parallel.distributed_ba",
+              "parallel.trajectory_sharding", "parallel.fleet",
+              "parallel.multiprocess"):
         assert f"mageslam_tpu_torch.{m}" in modules
     # the console too, as a script would load it
     # the console's --host-engine flag picks the host engine's class
