@@ -131,6 +131,31 @@ Phases (each raises on failure, so any failure exits non-zero):
     fleet's count minus 3, stream 0 equals a solo ``DeviceEngine`` in every
     slot of its output rows, 240 launches of ``fast_detect_and_smooth``.
 
+19. the bench and the port's programs: ``bench_torch.py --kernel-table`` and
+    ``--device-step`` in fresh processes (their lines printed; two steps
+    from clones of one state must be equal); ``bench.py``'s 250 frames
+    rendered by the port, their CRC-32s equal to the JAX renderer's
+    (``tests/data/torch_bench.npz``), and one bench drive at
+    ``ref_settings()`` and one at ``fast_settings()`` (``reset``, 50
+    warm-up frames, 200 timed): each initializes if and only if the JAX
+    engine's drive did, its first tracking frame within 5 of JAX's, and
+    tracks at least JAX's count minus 5, one launch per frame.  Neither
+    engine initializes at ``ref_settings()``, so that drive is a parity
+    record; the ``fast_settings()`` drive is the one that fails a port
+    that does not initialize.  The frame at which the map initializes is
+    set by the initialization RANSAC's draws, which differ between
+    ``jax.random`` and torch's CUDA generator, so over seeds 1-12 on the
+    first 20 frames the median first tracking frame must lie within 3 of
+    the JAX engine's over the same seeds (the launches of both drives and
+    of the seeds count); ``examples/run_synthetic_torch.py`` at its
+    defaults: tracked at least JAX's ``run_synthetic`` minus 3, ATE
+    under 1.5x JAX's; then ``tools/bench_torch_matching.py`` at N=512,
+    ``tools/bench_torch_scaling.py`` at 1 and 2 shards of L=2048,
+    ``tools/profile_torch_frontend.py``, the feed phase of
+    ``tools/profile_torch_engine.py`` and ``tools/make_dataset_torch.py``
+    for 3 frames (where matplotlib is missing, ``io/real_texture`` raises
+    ``ImportError`` and the tool is not run).
+
 The facade runs at its default ``fetch_every`` (8): results resolve through
 its fetch ring, and the prior provider, events and fuser fences follow its
 timing; the phase holds the frames resolved per call and the frames that
@@ -163,6 +188,7 @@ FACADE_FIXTURE = ROOT / "tests" / "data" / "torch_facade.npz"
 DATASET_FIXTURE = ROOT / "tests" / "data" / "torch_dataset.npz"
 HOST_FIXTURE = ROOT / "tests" / "data" / "torch_host.npz"
 PARALLEL_FIXTURE = ROOT / "tests" / "data" / "torch_parallel.npz"
+BENCH_FIXTURE = ROOT / "tests" / "data" / "torch_bench.npz"
 MINI_SEQ = ROOT / "tests" / "data" / "mini_seq"
 RING_SEQ = ROOT / "tests" / "data" / "ring_seq"
 RING_BLACKOUT = range(130, 138)
@@ -202,20 +228,16 @@ def run_text(cmd) -> str:
 
 
 def ref_settings(gaussian_kernel_size: int = 7):
-    """bench.py's reference-shaped settings: the defaults (loop closure and
-    cheap loop closure on) at 440 features."""
-    from mageslam_tpu_torch import MageSlamSettings
-    s = MageSlamSettings()
+    """``bench_torch.ref_settings()`` (``bench.py``'s reference-shaped
+    settings: the defaults, loop closure and cheap loop closure on, at 440
+    features) with a ``gaussian_kernel_size``-tap blur."""
+    from bench_torch import ref_settings as bench_ref_settings
+    s = bench_ref_settings()
     mono = s.mono
-    fe = dataclasses.replace(mono.camera.features, num_features=440,
-                             fast_threshold=int(THRESHOLD),
+    fe = dataclasses.replace(mono.camera.features,
                              gaussian_kernel_size=gaussian_kernel_size)
     cam = dataclasses.replace(mono.camera, features=fe)
-    return s.replace(mono=dataclasses.replace(mono, camera=cam),
-                     keyframe=dataclasses.replace(
-                         s.keyframe, min_frame_count=3,
-                         min_frame_count_reloc=3,
-                         min_tracking_point_count=15))
+    return s.replace(mono=dataclasses.replace(mono, camera=cam))
 
 
 def time_ms(torch, fn, runs: int = TIMING_RUNS) -> float:
@@ -1775,13 +1797,182 @@ def parallel_phase(torch, np, ring_eng, z):
     return launches
 
 
+def run_tool(args, tag: str, timeout: float = 600) -> str:
+    """Run a tool of the repo in a fresh process; its output, printed
+    under ``tag``.  Raises if it fails."""
+    proc = subprocess.run([sys.executable, *map(str, args)],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=str(ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: rc {proc.returncode}\n{proc.stdout}"
+                             f"\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.strip().splitlines():
+        print(f"[{tag}] {line}", flush=True)
+    return proc.stdout
+
+
+def check_init_outcome(np, codes, want, label: str, first_slack: int = 5,
+                       tracked_slack: int = 5, warmup: int = 50):
+    """The drive initializes if and only if JAX's did (its first tracking
+    frame within ``first_slack`` of JAX's) and tracks at least JAX's count
+    of timed frames minus ``tracked_slack``."""
+    init, jinit = bool((codes == 2).any()), bool((want == 2).any())
+    first = int(np.argmax(codes == 2)) if init else -1
+    jfirst = int(np.argmax(want == 2)) if jinit else -1
+    tracked = int((codes[warmup:] == 2).sum())
+    jtracked = int((want[warmup:] == 2).sum())
+    if init != jinit or abs(first - jfirst) > first_slack:
+        raise AssertionError(f"{label}: first tracking frame {first}, JAX's "
+                             f"{jfirst} (-1: never initialized)")
+    if tracked < jtracked - tracked_slack:
+        raise AssertionError(f"{label}: tracked {tracked} < JAX {jtracked} "
+                             f"- {tracked_slack}")
+    return first, jfirst, tracked, jtracked
+
+
+def check_init_spread(np, firsts, want, frames: int, slack: int = 3):
+    """Over the same seeds, the median first tracking frame (a drive that
+    never tracks counts as ``frames``) within ``slack`` frames of JAX's."""
+    med = float(np.median(np.where(firsts < 0, frames, firsts)))
+    jmed = float(np.median(np.where(want < 0, frames, want)))
+    if abs(med - jmed) > slack:
+        raise AssertionError(f"init seeds: first tracking frames "
+                             f"{firsts.tolist()} (median {med}), JAX's "
+                             f"{want.tolist()} (median {jmed})")
+    return med, jmed
+
+
+def bench_phase(torch, np, b):
+    """``bench_torch.py``, the port's example and its tools: the kernel table
+    and the device step in fresh processes; one bench drive at
+    ``ref_settings()`` and one at ``fast_settings()`` held to the JAX
+    engine's codes (``tests/data/torch_bench.npz``), and the first
+    tracking frame over 12 seeds held to JAX's; ``run_synthetic_torch`` at its
+    defaults held to JAX's ``run_synthetic``; the matching, scaling,
+    frontend-profile and feed tools at small sizes; the dataset tool (or
+    its ``ImportError`` where matplotlib is missing)."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "examples"))
+    import bench_torch
+    import console_torch
+    import run_synthetic_torch
+    from mageslam_tpu_torch.ops import fast_cuda
+
+    table = bench_torch.sub_record("--kernel-table", "KERNEL_TABLE", 600)
+    print(f"[bench] kernel table (ms per call, host clock; events in "
+          f"event_ms): {json.dumps(table)}", flush=True)
+    step = bench_torch.sub_record("--device-step", "DEVICE_STEP", 600)
+    print(f"[bench] device step: {json.dumps(step)}", flush=True)
+    if not step["restep_equal"]:
+        raise AssertionError("device step: two steps from clones of one "
+                             "state differ")
+
+    t0 = time.perf_counter()
+    imgs = bench_torch.bench_frames()
+    crcs = bench_torch.frame_crcs(imgs)
+    if not np.array_equal(crcs, b["bench_crcs"]):
+        bad = int((crcs != b["bench_crcs"]).sum())
+        raise AssertionError(f"bench frames: {bad} differ from the JAX "
+                             "renderer's")
+    render_s = time.perf_counter() - t0
+    eng = bench_torch.make_engine(bench_torch.ref_settings())
+    fast_cuda.reset_launch_counts()
+    d = bench_torch.bench_drive(eng, imgs)
+    torch.cuda.synchronize()
+    launches = fast_cuda.launch_counts()
+    if launches["fast_detect_and_smooth"] != len(imgs):
+        raise AssertionError(f"bench drive: launches {launches} for "
+                             f"{len(imgs)} frames")
+    first, jfirst, tracked, jtracked = check_init_outcome(
+        np, d["codes"], b["bench_ref_codes"], "bench drive")
+    print(f"[bench] one drive at ref_settings(), frames rendered and "
+          f"checked against the JAX renderer's CRCs in {render_s:.1f} s: "
+          f"{d['fps']:.2f} frames/s over the 200 timed frames, tracked "
+          f"{tracked} (JAX {jtracked}), first tracking frame {first} (JAX "
+          f"{jfirst}; -1: never initialized, so the frames/s are those of a "
+          f"step without mapping), host syncs/frame "
+          f"{d['host_syncs_per_frame']:.2f}, launches {launches}; a parity "
+          f"record: neither engine initializes here, so this drive cannot "
+          f"catch a port that fails to", flush=True)
+
+    # fast_settings(): JAX's drive initializes, so this one holds the port
+    # to initializing; then the first tracking frame over 12 seeds
+    eng = bench_torch.make_engine(console_torch.fast_settings())
+    fast_cuda.reset_launch_counts()
+    d = bench_torch.bench_drive(eng, imgs)
+    n_init = bench_torch.INIT_FRAMES
+    firsts = bench_torch.first_tracking_frames(eng, imgs[:n_init])
+    torch.cuda.synchronize()
+    counts = fast_cuda.launch_counts()
+    n = len(imgs) + n_init * len(bench_torch.INIT_SEEDS)
+    if counts["fast_detect_and_smooth"] != n:
+        raise AssertionError(f"bench drive (fast): launches {counts} for "
+                             f"{n} frames")
+    first, jfirst, tracked, jtracked = check_init_outcome(
+        np, d["codes"], b["bench_fast_codes"], "bench drive (fast)")
+    if not np.array_equal(b["init_seeds"], bench_torch.INIT_SEEDS):
+        raise AssertionError(f"init seeds: fixture {b['init_seeds']}")
+    med, jmed = check_init_spread(np, firsts, b["init_first"], n_init)
+    print(f"[bench] one drive at fast_settings(): {d['fps']:.2f} frames/s, "
+          f"tracked {tracked} (JAX {jtracked}), first tracking frame "
+          f"{first} (JAX {jfirst}), host syncs/frame "
+          f"{d['host_syncs_per_frame']:.2f}; first tracking frame over "
+          f"seeds {list(bench_torch.INIT_SEEDS)} on frames 0-{n_init - 1}: "
+          f"{firsts.tolist()} (median {med}), JAX's "
+          f"{b['init_first'].tolist()} (median {jmed}); launches {counts}",
+          flush=True)
+    for name in counts:
+        launches[name] += counts[name]
+
+    fast_cuda.reset_launch_counts()
+    rs = run_synthetic_torch.run(run_synthetic_torch.parse_args([]))
+    torch.cuda.synchronize()
+    counts = fast_cuda.launch_counts()
+    n = len(rs["codes"])
+    if rs["engine"].device.type != "cuda" \
+            or counts["fast_detect_and_smooth"] != n:
+        raise AssertionError(f"run_synthetic: on {rs['engine'].device}, "
+                             f"launches {counts} for {n} frames")
+    jt, jate = int(b["rs_tracked"]), float(b["rs_ate"])
+    if rs["tracked"] < jt - 3 or rs["ate"] is None \
+            or not rs["ate"] < 1.5 * jate:
+        raise AssertionError(f"run_synthetic: tracked {rs['tracked']} (JAX "
+                             f"{jt}), ATE {rs['ate']} (bound 1.5 x {jate})")
+    print(f"[run_synthetic] MageSlamTorch at fast_settings(): tracked "
+          f"{rs['tracked']}/{n} (JAX {jt}), ATE {rs['ate']:.5f} (JAX "
+          f"{jate:.5f}, bound {1.5 * jate:.5f}), {rs['fps']:.2f} frames/s, "
+          f"launches {counts}", flush=True)
+    for name in counts:
+        launches[name] += counts[name]
+
+    tools = ROOT / "tools"
+    run_tool([tools / "bench_torch_matching.py", "--sizes", "512"],
+             "matching")
+    run_tool([tools / "bench_torch_scaling.py", "--shards", "1", "2",
+              "--landmarks", "2048"], "scaling")
+    run_tool([tools / "profile_torch_frontend.py"], "frontend profile")
+    run_tool([tools / "profile_torch_engine.py", "--phase", "feed"],
+             "feed profile")
+    from mageslam_tpu_torch.io import real_texture
+    try:
+        real_texture.load_reference_photo()
+    except ImportError as e:
+        print(f"[dataset tool] not run: {e}", flush=True)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            run_tool([tools / "make_dataset_torch.py", "--out", tmp,
+                      "--frames", "3"], "dataset tool")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE, DATASET_FIXTURE,
-                 HOST_FIXTURE, PARALLEL_FIXTURE, MINI_SEQ, RING_SEQ):
+                 HOST_FIXTURE, PARALLEL_FIXTURE, BENCH_FIXTURE, MINI_SEQ,
+                 RING_SEQ):
         if not path.exists():
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 3
@@ -1846,6 +2037,12 @@ def main() -> int:
     # the parallel layer; its fleet drive counts from 0
     with np.load(PARALLEL_FIXTURE) as par:
         counts = parallel_phase(torch, np, ring_eng, par)
+    for name in launches:
+        launches[name] += counts[name]
+    # the bench, run_synthetic and the tools; the in-process drives count
+    # from 0
+    with np.load(BENCH_FIXTURE) as b:
+        counts = bench_phase(torch, np, b)
     for name in launches:
         launches[name] += counts[name]
 

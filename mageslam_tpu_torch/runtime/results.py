@@ -23,3 +23,11 @@ class TrackingResult:
     timestamp: float
     state: TrackingState
     pose: Optional[np.ndarray] = None       # (7,) view pose when tracked
+
+
+def state_codes(states) -> np.ndarray:
+    """int8 codes of ``states`` in the engine's numbering
+    (``device_engine.CODE_*``: 0 skipped, 1 initializing, 2 tracking,
+    3 relocalizing)."""
+    order = list(TrackingState)
+    return np.array([order.index(s) for s in states], np.int8)

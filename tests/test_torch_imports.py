@@ -17,6 +17,14 @@ PKG = ROOT / "mageslam_tpu_torch"
 
 
 CONSOLE = ROOT / "examples" / "console_torch.py"
+# the port's bench, example and measuring tools, which run on the card's
+# host too
+PROGRAMS = [ROOT / "bench_torch.py",
+            ROOT / "examples" / "run_synthetic_torch.py",
+            *(ROOT / "tools" / f"{name}.py" for name in (
+                "make_dataset_torch", "profile_torch_engine",
+                "profile_torch_frontend", "bench_torch_matching",
+                "bench_torch_scaling"))]
 
 
 def test_import_leaves_jax_unloaded():
@@ -29,12 +37,14 @@ def test_import_leaves_jax_unloaded():
               "utils.tracing", "runtime.skeleton_key",
               "mapstore.denoising", "parallel.distributed_ba",
               "parallel.trajectory_sharding", "parallel.fleet",
-              "parallel.multiprocess"):
+              "parallel.multiprocess", "io.real_texture"):
         assert f"mageslam_tpu_torch.{m}" in modules
-    # the console too, as a script would load it
+    # the console and those programs too, as a script would load them
     # the console's --host-engine flag picks the host engine's class
+    programs = [str(p) for p in PROGRAMS]
     code = ("import sys, importlib, runpy; import mageslam_tpu_torch; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
+            f"[runpy.run_path(p, run_name='program') for p in {programs!r}]; "
             f"c = runpy.run_path({str(CONSOLE)!r}, run_name='console'); "
             "assert c['parse_args'](['--host-engine']).host_engine; "
             "assert not c['parse_args']([]).host_engine; "
@@ -61,7 +71,7 @@ def test_package_sources_import_no_jax():
     # the package, and what runs on a GPU host that has no JAX
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-        CONSOLE]
+        CONSOLE, *PROGRAMS]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
