@@ -131,17 +131,46 @@ Phases (each raises on failure, so any failure exits non-zero):
     fleet's count minus 3, stream 0 equals a solo ``DeviceEngine`` in every
     slot of its output rows, 240 launches of ``fast_detect_and_smooth``.
 
-19. the bench and the port's programs: ``bench_torch.py --kernel-table`` and
+19. the long session at keyframe capacity (``tests/data/torch_long640.npz``):
+    ``tests/test_long_session.py``'s 640-frame slow double loop with 40
+    keyframe slots, 2048 map points and a 1024-entry history, rendered on
+    the host by the port's renderer (each frame's CRC-32 equal to the JAX
+    renderer's) and driven twice through ``MageSlamTorchFused`` on the
+    card, each drive launching ``fast_detect_and_smooth`` once per frame
+    (640); the kernel must equal its plain version exactly (score and
+    blur) on frames 0, 320 and 639.  The drive's outcome is set by its
+    initial map (frame 3), and each drive is held to the JAX engine's
+    drives from the same map: (a) from the port's own initialization.  Its
+    map must be, within 1e-3 in the keyframe poses, either the JAX
+    engine's at seed 1 (``init_post/``) or the one the card made when the
+    fixture was written (``card_init/``: the homography's two candidates
+    with equal cheirality counts are told apart by a reprojection term
+    below float32's resolution, and the card takes the other one); it is
+    then held to the JAX engine's drive from that map (``ci_*``: tracked
+    at least its count minus 32, the last 50 frames at least its count
+    minus 10, the history at least its count minus 32, the ATE under 1.5x
+    its ATE), or, from JAX's map, as (b) is.  (b) Resumed from the JAX
+    engine's state after its initialization
+    (``convert.engine_state_from_npz``, as phase 13 loads a JAX
+    checkpoint), so that keyframe creation runs past capacity: force cull,
+    slot recycling, history re-anchoring, ``fossilize`` over a churned
+    map.  It must track at least the JAX engine's lowest count over seeds
+    1-3 minus 32 (5%) and 40 of the last 50 frames, create more than 40
+    keyframes and keep at least 600 history entries, and keep the Sim3
+    fossil ATE under 1.5x the worst of JAX's three.  Both must never hold
+    more than 40 keyframes and keep their array shapes;
+20. the bench and the port's programs: ``bench_torch.py --kernel-table`` and
     ``--device-step`` in fresh processes (their lines printed; two steps
     from clones of one state must be equal); ``bench.py``'s 250 frames
     rendered by the port, their CRC-32s equal to the JAX renderer's
     (``tests/data/torch_bench.npz``), and one bench drive at
-    ``ref_settings()`` and one at ``fast_settings()`` (``reset``, 50
-    warm-up frames, 200 timed): each initializes if and only if the JAX
-    engine's drive did, its first tracking frame within 5 of JAX's, and
-    tracks at least JAX's count minus 5, one launch per frame.  Neither
-    engine initializes at ``ref_settings()``, so that drive is a parity
-    record; the ``fast_settings()`` drive is the one that fails a port
+    ``ref_settings()`` over the first 60 frames and one at
+    ``fast_settings()`` over all 250 (``reset``, 50 warm-up frames, the
+    rest timed): each initializes if and only if the JAX engine's drive
+    did (over the same frames), its first tracking frame within 5 of
+    JAX's, and tracks at least JAX's count minus 5, one launch per frame.
+    Neither engine initializes at ``ref_settings()``, so that drive is a
+    parity record; the ``fast_settings()`` drive is the one that fails a port
     that does not initialize.  The frame at which the map initializes is
     set by the initialization RANSAC's draws, which differ between
     ``jax.random`` and torch's CUDA generator, so over seeds 1-12 on the
@@ -189,6 +218,7 @@ DATASET_FIXTURE = ROOT / "tests" / "data" / "torch_dataset.npz"
 HOST_FIXTURE = ROOT / "tests" / "data" / "torch_host.npz"
 PARALLEL_FIXTURE = ROOT / "tests" / "data" / "torch_parallel.npz"
 BENCH_FIXTURE = ROOT / "tests" / "data" / "torch_bench.npz"
+LONG_FIXTURE = ROOT / "tests" / "data" / "torch_long640.npz"
 MINI_SEQ = ROOT / "tests" / "data" / "mini_seq"
 RING_SEQ = ROOT / "tests" / "data" / "ring_seq"
 RING_BLACKOUT = range(130, 138)
@@ -202,6 +232,11 @@ TIMING_RUNS = 60
 GRAPH_LAUNCHES = 200
 THRESHOLD = 10.0
 WIDE_BLUR_FRAMES = 15
+# the long session: tests/test_long_session.py's slow double loop
+LONG_RADIUS, LONG_FRACTION = 3.0, 2.24
+LONG_CHECK_FRAMES = (0, 320, 639)
+# the bench's ref_settings() drive: 50 warm-up frames and 10 timed
+REF_BENCH_FRAMES = 60
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM
 # and 67 TFLOP/s of float32, which counts each multiply-add as two.  The
@@ -1797,6 +1832,238 @@ def parallel_phase(torch, np, ring_eng, z):
     return launches
 
 
+def long_frames(np, z):
+    """The long session's frames, rendered on the host by the port's copy
+    of the synthetic world, each checked against the JAX renderer's CRC-32
+    (the fixture carries the frames it cannot reproduce)."""
+    import zlib
+    from mageslam_tpu_torch.io import synthetic
+    world = synthetic.SyntheticWorld.create_ring(900, seed=5)
+    cal = synthetic.default_calibration()
+    poses = synthetic.loop_trajectory(len(z["crcs"]), radius=LONG_RADIUS,
+                                      fraction=LONG_FRACTION)
+    if not np.allclose(poses, z["gt_poses"], atol=1e-6):
+        raise AssertionError("long session: trajectory differs from the "
+                             "fixture's")
+    fix = dict(zip(z["fix_idx"].tolist(), z["fix_frames"]))
+    imgs = []
+    for i, pose in enumerate(poses):
+        if i in fix:
+            imgs.append(fix[i])
+            continue
+        img = world.render(cal, pose, seed=100 + i)
+        if zlib.crc32(np.ascontiguousarray(img).tobytes()) \
+                != int(z["crcs"][i]):
+            raise AssertionError(f"long session: frame {i} differs from the "
+                                 "JAX renderer's")
+        imgs.append(img)
+    return imgs
+
+
+def long_drive(eng, frames, n: int, at: int, resume=None):
+    """Frames 0 to ``n`` - 1 of ``frames`` through the facade ``eng``,
+    flushed after frame ``at`` (the initialization); with ``resume``, the
+    engine's state is replaced there by ``resume``.  Returns the output
+    rows (n, 24), the clock after each frame and a copy of the engine's
+    own state after frame ``at`` (the step writes into some of its
+    state's tensors)."""
+    import numpy as np
+    from bench_torch import clone_state
+    stamps, own = [], None
+    for i in range(n):
+        eng.process_frame(frames[i], timestamp=i / 30.0)
+        stamps.append(time.perf_counter())
+        if i == at:
+            eng.flush()
+            own = clone_state(eng.state)
+            if resume is not None:
+                eng.state = resume
+    eng.flush()
+    return np.stack([eng.output_row(i) for i in range(n)]), stamps, own
+
+
+def init_reference(np, st, z) -> str:
+    """Which stored initial map the engine state ``st`` holds: ``jax``
+    (``init_post/``, the JAX engine's) or ``card`` (``card_init/``, the
+    port's own on the card); raises if neither, within 1e-3 in the
+    keyframe poses."""
+    valid = st.map.kf_valid.cpu().numpy()
+    pose = st.map.kf_pose.cpu().numpy()
+    gaps = {}
+    for ref, prefix in (("jax", "init_post/"), ("card", "card_init/")):
+        want = z.get(prefix + "map/kf_pose", z["init_post/map/kf_pose"])
+        if np.array_equal(valid, z["init_post/map/kf_valid"]):
+            gaps[ref] = float(np.abs(pose[valid] - want[valid]).max())
+            if gaps[ref] <= 1e-3:
+                return ref
+    raise AssertionError(f"long session: the initial map matches no stored "
+                         f"one (keyframe pose gaps {gaps}, slots "
+                         f"{np.nonzero(valid)[0].tolist()})")
+
+
+def long_outcome(np, eng, rows, z) -> dict:
+    """A long drive's outcome, as ``tests/test_long_session.py`` reads it,
+    and its fossil's Sim3 ATE."""
+    from mageslam_tpu_torch.io.evaluation import ate_rmse
+    from mageslam_tpu_torch.runtime import device_engine as de
+    st = eng.state
+    tracking = rows[:, 0].astype(int) == de.CODE_TRACKING
+    fossil = eng.fossilize()
+    if not np.isfinite(fossil.poses).all():
+        raise AssertionError("long session: non-finite fossil pose")
+    est, ref = [], []
+    for i in range(len(rows)):
+        p = fossil.pose_for_frame(i)
+        if tracking[i] and p is not None:
+            est.append(p)
+            ref.append(z["gt_poses"][i])
+    ate, _, gt_c = ate_rmse(np.asarray(est), np.asarray(ref))
+    alive = rows[:, 9].astype(int)
+    return {"tracked": int(tracking.sum()),
+            "last50": int(tracking[-50:].sum()),
+            "first_lost": first_lost(np, rows[:, 0], int(z["init_frame"])),
+            "ever": int(st.map.num_kf_ever), "alive": int(alive[-1]),
+            "alive_max": int(alive.max()),
+            "shapes": (st.map.kf_valid.shape[0], st.map.mp_valid.shape[0],
+                       st.history.valid.shape[0]),
+            "history": int(st.history.valid.sum()),
+            "points": eng.num_map_points, "loops": eng.loops_closed,
+            "ate": float(ate),
+            "extent": float(np.linalg.norm(gt_c.max(0) - gt_c.min(0)))}
+
+
+def first_lost(np, codes, at: int) -> int:
+    """The first frame after the initialization frame ``at`` that is not
+    tracked (-1: none)."""
+    from mageslam_tpu_torch.runtime import device_engine as de
+    lost = (np.asarray(codes).astype(int) != de.CODE_TRACKING) \
+        & (np.arange(len(codes)) > at)
+    return int(np.argmax(lost)) if lost.any() else -1
+
+
+def long_bounds(z, ref: str, cap) -> dict:
+    """The bounds a long drive from initial map ``ref`` is held to: the
+    JAX engine's drives from the same map."""
+    if ref == "jax":
+        return {"tracked": min(int(z[f"s{s}_tracked"]) for s in (1, 2, 3))
+                - 32, "last50": 40, "history": 600, "ate": float(
+                    z["ate_bound"]), "ever_over_capacity": True}
+    return {"tracked": int(z["ci_tracked"]) - 32,
+            "last50": int(z["ci_last50"]) - 10,
+            "history": int(z["ci_history_valid"]) - 32,
+            "ate": 1.5 * float(z["ci_ate"]),
+            "ever_over_capacity": int(z["ci_kf"][-1, 0]) > cap.max_keyframes}
+
+
+def check_long(o: dict, bounds: dict, cap, label: str) -> None:
+    shapes = (cap.max_keyframes, cap.max_map_points, cap.pose_history_size)
+    faults = []
+    if o["tracked"] < bounds["tracked"] or o["last50"] < bounds["last50"]:
+        faults.append(f"tracked {o['tracked']}, last 50 frames {o['last50']}")
+    if o["alive_max"] > cap.max_keyframes:
+        faults.append(f"keyframes alive up to {o['alive_max']}")
+    if bounds["ever_over_capacity"] and o["ever"] <= cap.max_keyframes:
+        faults.append(f"{o['ever']} keyframes ever")
+    if o["shapes"] != shapes:
+        faults.append(f"shapes {o['shapes']}")
+    if o["history"] < bounds["history"]:
+        faults.append(f"{o['history']} history entries")
+    if not o["ate"] < bounds["ate"]:
+        faults.append(f"ATE {o['ate']}")
+    if faults:
+        raise AssertionError(f"long session ({label}): {'; '.join(faults)} "
+                             f"(bounds {bounds})")
+
+
+def long_session_phase(torch, np, z):
+    """``tests/test_long_session.py``'s drive on the card: 640 frames of a
+    slow double loop with 40 keyframe slots, twice: (a) from the port's own
+    initialization, held to the JAX engine's drive from the same initial
+    map, and (b) resumed from the JAX engine's state after its
+    initialization, so that keyframe creation runs past capacity (force
+    cull, slot recycling, history re-anchoring, fossilize over a churned
+    map), held to the JAX engine's drives at seeds 1-3
+    (``tests/data/torch_long640.npz``)."""
+    from mageslam_tpu_torch import MageSlamSettings, convert
+    from mageslam_tpu_torch.ops import fast, fast_cuda
+
+    t0 = time.perf_counter()
+    imgs = long_frames(np, z)
+    render_s = time.perf_counter() - t0
+    n = len(imgs)
+    settings = MageSlamSettings.from_json(str(z["settings_json"]))
+    cap = settings.capacity
+    k = int(z["init_frame"])
+    launches = {}
+    for label in ("own", "resumed"):
+        eng, _ = make_engine(settings, z)
+        resume = None if label == "own" else convert.engine_state_from_npz(
+            z, "init_post/", device=eng.device)
+        fast_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows, stamps, own = long_drive(eng, imgs, n, k, resume)
+        syncs = eng.host_syncs
+        o = long_outcome(np, eng, rows, z)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = fast_cuda.launch_counts()
+        if counts["fast_detect_and_smooth"] != n:
+            raise AssertionError(f"long session ({label}): launches "
+                                 f"{counts} for {n} frames")
+        for name in counts:
+            launches[name] = launches.get(name, 0) + counts[name]
+        ref = init_reference(np, own, z) if resume is None else "jax"
+        bounds = long_bounds(z, ref, cap)
+        alive = rows[:, 9].astype(int)
+        full = int(np.argmax(alive >= cap.max_keyframes)) \
+            if alive.max() >= cap.max_keyframes else -1
+        jfull = int(np.argmax(z["s1_kf"][:, 1] >= cap.max_keyframes))
+        steady = (n - 21) / (stamps[-1] - stamps[19])
+        if ref == "jax":
+            seeds = (1, 2, 3)
+            jax_line = (
+                f"JAX seeds 1-3 tracked "
+                f"{[int(z[f's{s}_tracked']) for s in seeds]}, first lost at "
+                f"{[first_lost(np, z[f's{s}_codes'], k) for s in seeds]}, "
+                f"keyframes ever {int(z['s1_kf'][-1, 0])} (seed 1), "
+                f"capacity first at frame {jfull} (seed 1), ATE "
+                f"{[round(float(z[f's{s}_ate']), 5) for s in seeds]}")
+        else:
+            jax_line = (
+                f"JAX from this map tracked {int(z['ci_tracked'])}, first "
+                f"lost at {first_lost(np, z['ci_codes'], k)}, last 50 "
+                f"{int(z['ci_last50'])}, keyframes ever "
+                f"{int(z['ci_kf'][-1, 0])}, ATE {float(z['ci_ate']):.5f}")
+        print(f"[long {label}] initial map: "
+              f"{'resumed from JAX' if resume is not None else ref}'s; "
+              f"tracked {o['tracked']}/{n}, first lost at frame "
+              f"{o['first_lost']}, last 50 frames {o['last50']}; "
+              f"keyframes ever {o['ever']}, alive {o['alive']} (at most "
+              f"{o['alive_max']} at any frame), capacity first at frame "
+              f"{full}; map points {o['points']}, history entries "
+              f"{o['history']}, loops closed {o['loops']}; ATE "
+              f"{o['ate']:.5f} on an extent of {o['extent']:.3f}; "
+              f"({jax_line}; bounds {bounds})", flush=True)
+        print(f"[long {label}] steady frames/s over frames 20-{n - 1} "
+              f"{steady:.2f}, host syncs/frame {syncs / n:.2f} (+1 read per "
+              f"window of 8 output rows), drive+fossilize {t_total:.1f} s; "
+              f"launches {counts}", flush=True)
+        check_long(o, bounds, cap, label)
+    # the kernel against its plain version on this drive's frames
+    for i in LONG_CHECK_FRAMES:
+        img = torch.as_tensor(imgs[i]).cuda()
+        _, err = check_against_plain(torch, fast, fast_cuda, img, 7,
+                                     f"long session frame {i}")
+        if err != 0.0:
+            raise AssertionError(f"long session frame {i}: blur error {err}")
+    print(f"[long] {n} frames rendered and checked against the JAX "
+          f"renderer's CRCs in {render_s:.1f} s; kernel exact against plain "
+          f"on frames {list(LONG_CHECK_FRAMES)}", flush=True)
+    print(run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]), flush=True)
+    return launches
+
+
 def run_tool(args, tag: str, timeout: float = 600) -> str:
     """Run a tool of the repo in a fresh process; its output, printed
     under ``tag``.  Raises if it fails."""
@@ -1875,19 +2142,24 @@ def bench_phase(torch, np, b):
         raise AssertionError(f"bench frames: {bad} differ from the JAX "
                              "renderer's")
     render_s = time.perf_counter() - t0
+    # at ref_settings() neither engine initializes: a parity record, cut
+    # to its first frames to keep the script's time
     eng = bench_torch.make_engine(bench_torch.ref_settings())
     fast_cuda.reset_launch_counts()
-    d = bench_torch.bench_drive(eng, imgs)
+    d = bench_torch.bench_drive(eng, imgs[:REF_BENCH_FRAMES])
     torch.cuda.synchronize()
     launches = fast_cuda.launch_counts()
-    if launches["fast_detect_and_smooth"] != len(imgs):
+    if launches["fast_detect_and_smooth"] != REF_BENCH_FRAMES:
         raise AssertionError(f"bench drive: launches {launches} for "
-                             f"{len(imgs)} frames")
+                             f"{REF_BENCH_FRAMES} frames")
     first, jfirst, tracked, jtracked = check_init_outcome(
-        np, d["codes"], b["bench_ref_codes"], "bench drive")
-    print(f"[bench] one drive at ref_settings(), frames rendered and "
+        np, d["codes"], b["bench_ref_codes"][:REF_BENCH_FRAMES],
+        "bench drive")
+    print(f"[bench] one drive at ref_settings() over the first "
+          f"{REF_BENCH_FRAMES} frames, frames rendered and "
           f"checked against the JAX renderer's CRCs in {render_s:.1f} s: "
-          f"{d['fps']:.2f} frames/s over the 200 timed frames, tracked "
+          f"{d['fps']:.2f} frames/s over the "
+          f"{REF_BENCH_FRAMES - bench_torch.WARMUP} timed frames, tracked "
           f"{tracked} (JAX {jtracked}), first tracking frame {first} (JAX "
           f"{jfirst}; -1: never initialized, so the frames/s are those of a "
           f"step without mapping), host syncs/frame "
@@ -1971,8 +2243,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     for path in (FIXTURE, RING_FIXTURE, FACADE_FIXTURE, DATASET_FIXTURE,
-                 HOST_FIXTURE, PARALLEL_FIXTURE, BENCH_FIXTURE, MINI_SEQ,
-                 RING_SEQ):
+                 HOST_FIXTURE, PARALLEL_FIXTURE, BENCH_FIXTURE, LONG_FIXTURE,
+                 MINI_SEQ, RING_SEQ):
         if not path.exists():
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 3
@@ -2037,6 +2309,11 @@ def main() -> int:
     # the parallel layer; its fleet drive counts from 0
     with np.load(PARALLEL_FIXTURE) as par:
         counts = parallel_phase(torch, np, ring_eng, par)
+    for name in launches:
+        launches[name] += counts[name]
+    # the long session at keyframe capacity; its drive counts from 0
+    with np.load(LONG_FIXTURE) as long_z:
+        counts = long_session_phase(torch, np, long_z)
     for name in launches:
         launches[name] += counts[name]
     # the bench, run_synthetic and the tools; the in-process drives count

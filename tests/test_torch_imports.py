@@ -24,7 +24,7 @@ PROGRAMS = [ROOT / "bench_torch.py",
             *(ROOT / "tools" / f"{name}.py" for name in (
                 "make_dataset_torch", "profile_torch_engine",
                 "profile_torch_frontend", "bench_torch_matching",
-                "bench_torch_scaling"))]
+                "bench_torch_scaling", "probe_torch_long_init"))]
 
 
 def test_import_leaves_jax_unloaded():
@@ -77,6 +77,33 @@ def test_package_sources_import_no_jax():
         for mod in _imports(path):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "mageslam_tpu"), (
+                path, mod)
+
+
+# the tools that write the port's goldens and diagnose its parity run the
+# JAX package by design, as do the parity tests (tests/test_torch_*.py)
+# that read their constants; they import it inside their functions
+JAX_TOOLS = sorted((ROOT / "tools").glob("make_torch_*_fixture.py")) + [
+    ROOT / "tools" / "diagnose_torch_init_rate.py"]
+
+
+def _top_level_imports(path: Path):
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_fixture_tools_import_jax_only_when_run():
+    names = {p.name for p in JAX_TOOLS}
+    assert {"make_torch_long_fixture.py", "make_torch_init_fixture.py",
+            "make_torch_ring_fixture.py"} <= names
+    for path in JAX_TOOLS:
+        assert any(m.split(".")[0] in ("jax", "mageslam_tpu")
+                   for m in _imports(path)), path
+        for mod in _top_level_imports(path):
+            assert mod.split(".")[0] not in ("jax", "mageslam_tpu"), (
                 path, mod)
 
 
