@@ -60,6 +60,7 @@ from mageslam_tpu_torch.tracking import initialization, relocalization, track
 from mageslam_tpu_torch.tracking.frontend import (FrameFeatures,
                                                   empty_features,
                                                   extract_features)
+from mageslam_tpu_torch.utils.tracing import PROFILER
 
 CODE_SKIPPED = 0
 CODE_INITIALIZING = 1
@@ -316,8 +317,16 @@ class DeviceEngine:
     called once per attempt, where the JAX engine splits its key.  The
     default draws from the engine's generator.
 
-    ``counts`` tallies the occasional work: relocalizations tried and
-    accepted, loop detections gated out for want of candidates and run."""
+    ``counts`` is the engine's counter store, exact on the host and always
+    on, like ``host_syncs`` (each ``_read``): relocalizations tried and
+    accepted (``reloc_tried``, ``reloc_accepted``), loop attempts gated out
+    for want of candidates and run (``loop_no_candidates``,
+    ``loop_detections``), LM iterations of local BA (``lm_steps``,
+    ``ba_per_run`` a call), keyframes inserted into the map, the initial
+    ones included (``keyframes_inserted``), culls at keyframe capacity
+    before an insertion (``force_culls``) and local-BA windows opened, by
+    insertion or reopening (``ba_windows_opened``).  The stages' spans are
+    ``utils/tracing.PROFILER``'s."""
 
     def __init__(self, settings: MageSlamSettings, cal: CameraCalibration,
                  device=None, seed: int = 0, sampler_factory=None):
@@ -331,7 +340,9 @@ class DeviceEngine:
             lambda: sampling.generator_sampler(self.gen))
         self.host_syncs = 0
         self.counts = dict(reloc_tried=0, reloc_accepted=0,
-                           loop_no_candidates=0, loop_detections=0)
+                           loop_no_candidates=0, loop_detections=0,
+                           lm_steps=0, keyframes_inserted=0, force_culls=0,
+                           ba_windows_opened=0)
         # associations installed by cheap loop closure, summed on the device
         self.cheap_loop_associations = torch.zeros(
             (), dtype=torch.int64, device=self.device)
@@ -351,7 +362,8 @@ class DeviceEngine:
         """One device->host read of several scalars (one sync)."""
         self.host_syncs += 1
         vals = torch.stack([x.reshape(()).to(torch.float64) for x in xs])
-        return vals.tolist()
+        with PROFILER.scope("sync"):
+            return vals.tolist()
 
     def _f32c(self, v: float) -> float:
         return float(torch.tensor(v, dtype=torch.float32))
@@ -450,6 +462,7 @@ class DeviceEngine:
             torch.where(created, mp_ids, torch.full_like(mp_ids, -1)))[:F]
         m, s1 = ms.insert_keyframe(m, ires.pose1, feats, assoc1, int(fid),
                                    immortal=True)
+        self.counts["keyframes_inserted"] += 2
         h = ph.add_pose(st.history, pfid, pts, ident,
                         torch.stack([s0, s1]).to(torch.int32), m.kf_pose)
         h = ph.add_pose(h, int(fid), self._f32c(ts), ires.pose1,
@@ -522,6 +535,7 @@ class DeviceEngine:
 
         (n_kf,) = self._read(st.map.kf_valid.sum())
         if n_kf >= self.K_total:
+            self.counts["force_culls"] += 1
             cres = culling.cull_keyframes(st.map, st.last_kf, 0.0, 1,
                                           window=self.K_total)
             dead = cres.kf_culled_mask
@@ -536,6 +550,7 @@ class DeviceEngine:
             return st
 
         m, slot = ms.insert_keyframe(st.map, pose, feats, assoc, fid)
+        self.counts["keyframes_inserted"] += 1
         st = st._replace(history=ph.anchor_frame_to_kf(st.history, fid,
                                                        slot))
         sig = bv.signature(st.vocab, feats.desc, feats.valid)
@@ -570,6 +585,7 @@ class DeviceEngine:
                                       min=float(cv.covis_min_threshold)),
                           thr)
         dev = self.device
+        self.counts["ba_windows_opened"] += 1
         return st._replace(
             map=m, kf_sig=kf_sig, kf_sig_valid=kf_sig_valid,
             covis_threshold=thr, last_kf=slot.to(torch.int32),
@@ -585,27 +601,30 @@ class DeviceEngine:
         keyframe when ``try_loop`` (the caller's read of ``_loop_gate``: the
         gate's inputs do not change in between)."""
         s = self.settings
-        m = st.map
         slot = st.ba_center
-        if s.track_local_map.unassociate_outliers:
-            fake = BAResult(st.ba_window.problem.kf_poses,
-                            st.ba_window.problem.points, None, st.lam,
-                            st.ba_outliers, None)
-            m = local_ba.unassociate_outliers(m, st.ba_window, fake)
-        cres = culling.cull_keyframes(
-            m, slot, self._f32c(s.keyframe.mapping_max_tracking_point_overlap),
-            int(s.keyframe.min_keyframe_covisibility_count))
-        dead = cres.kf_culled_mask
-        targets = ph.nearest_valid_kf(m.kf_valid, dead, m.kf_frame_id)
-        h = ph.reanchor(st.history, m.kf_pose, m.kf_valid, dead, targets)
-        m_fresh = ms.refresh_point_representatives(cres.map)
-        dev = self.device
-        st = st._replace(map=m_fresh, history=h,
-                         kf_sig_valid=st.kf_sig_valid & ~dead,
-                         ba_active=_b(False, dev),
-                         ba_steps_left=_i32(0, dev))
+        with PROFILER.scope("mapping.finish"):
+            m = st.map
+            if s.track_local_map.unassociate_outliers:
+                fake = BAResult(st.ba_window.problem.kf_poses,
+                                st.ba_window.problem.points, None, st.lam,
+                                st.ba_outliers, None)
+                m = local_ba.unassociate_outliers(m, st.ba_window, fake)
+            cres = culling.cull_keyframes(
+                m, slot,
+                self._f32c(s.keyframe.mapping_max_tracking_point_overlap),
+                int(s.keyframe.min_keyframe_covisibility_count))
+            dead = cres.kf_culled_mask
+            targets = ph.nearest_valid_kf(m.kf_valid, dead, m.kf_frame_id)
+            h = ph.reanchor(st.history, m.kf_pose, m.kf_valid, dead, targets)
+            m_fresh = ms.refresh_point_representatives(cres.map)
+            dev = self.device
+            st = st._replace(map=m_fresh, history=h,
+                             kf_sig_valid=st.kf_sig_valid & ~dead,
+                             ba_active=_b(False, dev),
+                             ba_steps_left=_i32(0, dev))
         if s.loop_closure.enable_loop_closure and try_loop:
-            st = self.try_loop(st, slot.long())
+            with PROFILER.scope("mapping.loop"):
+                st = self.try_loop(st, slot.long())
         return st
 
     def _loop_gate(self, st: EngineState) -> torch.Tensor:
@@ -653,25 +672,28 @@ class DeviceEngine:
     def ba_iterate(self, st: EngineState) -> EngineState:
         s = self.settings
         win = st.ba_window
-        res = bundle_adjust_impl(
-            win.problem, self._f32c(s.bundle_adjust.huber_width * self.px),
-            self._f32c(s.bundle_adjust.max_outlier_error * self.px),
-            num_steps=self.ba_per_run, lam0=st.lam,
-            pose_tethers=False)  # the window's one tether slot is unused
-        lam = torch.clamp(res.lam, min=s.mapping.min_lambda) \
-            if s.mapping.persist_lambda else st.lam
-        win = win._replace(problem=win.problem._replace(
-            kf_poses=res.kf_poses, points=res.points))
-        center = st.ba_center.long()
-        before = st.map.kf_pose[center]
-        m = local_ba.apply_window_result(st.map, win, res)
-        steps_left = st.ba_steps_left - self.ba_per_run
-        converged = (res.mean_sq_error <= self.mse_floor) \
-            | (res.lam >= 100.0) | (st.ba_reopened & (steps_left <= 0))
-        st = st._replace(map=m, ba_window=win, lam=lam,
-                         ba_steps_left=steps_left, ba_outliers=res.outliers,
-                         ba_converged=converged)
-        st = self._rebase_prior(st, before, m.kf_pose[center])
+        with PROFILER.scope("mapping.local_ba"):
+            res = bundle_adjust_impl(
+                win.problem,
+                self._f32c(s.bundle_adjust.huber_width * self.px),
+                self._f32c(s.bundle_adjust.max_outlier_error * self.px),
+                num_steps=self.ba_per_run, lam0=st.lam,
+                pose_tethers=False)  # the window's one tether slot is unused
+            self.counts["lm_steps"] += self.ba_per_run
+            lam = torch.clamp(res.lam, min=s.mapping.min_lambda) \
+                if s.mapping.persist_lambda else st.lam
+            win = win._replace(problem=win.problem._replace(
+                kf_poses=res.kf_poses, points=res.points))
+            center = st.ba_center.long()
+            before = st.map.kf_pose[center]
+            m = local_ba.apply_window_result(st.map, win, res)
+            steps_left = st.ba_steps_left - self.ba_per_run
+            converged = (res.mean_sq_error <= self.mse_floor) \
+                | (res.lam >= 100.0) | (st.ba_reopened & (steps_left <= 0))
+            st = st._replace(map=m, ba_window=win, lam=lam,
+                             ba_steps_left=steps_left,
+                             ba_outliers=res.outliers, ba_converged=converged)
+            st = self._rebase_prior(st, before, m.kf_pose[center])
         done = (steps_left <= 0) | (st.pend_count > 0) \
             | (res.mean_sq_error <= self.mse_floor)
         done, try_loop = self._read(done, self._loop_gate(st))
@@ -684,6 +706,7 @@ class DeviceEngine:
             window_size=cap.local_ba_keyframes, num_fixed=NUM_FIXED,
             max_points=cap.local_ba_points)
         dev = self.device
+        self.counts["ba_windows_opened"] += 1
         return st._replace(
             ba_window=win, ba_active=_b(True, dev),
             ba_steps_left=_i32(self.ba_total, dev), ba_center=st.last_kf,
@@ -699,11 +722,14 @@ class DeviceEngine:
         if active:
             return self.ba_iterate(st)
         if pend > 0:
-            st = self.drain_pending(st)
+            with PROFILER.scope("mapping.insert_keyframe"):
+                st = self.drain_pending(st)
             (active,) = self._read(st.ba_active)
             return self.ba_iterate(st) if active else st
         if reopen:
-            return self.ba_iterate(self.reopen_window(st))
+            with PROFILER.scope("mapping.reopen_window"):
+                st = self.reopen_window(st)
+            return self.ba_iterate(st)
         return st
 
     # ------------------------------------------------------------------
@@ -720,91 +746,96 @@ class DeviceEngine:
             se3.constant_velocity_extrapolate(st.pose_prev2, st.pose_prev)
         tres = track.track_frame(st.map, feats, prior, st.last_kf, cal, s,
                                  max_local_kf=cap.local_ba_keyframes)
-        mi = s.mono.map_init
-        need = torch.ceil(mi.min_third_frame_match_percentage
-                          * st.init_points.to(torch.float32)).to(torch.int64)
-        mse_ok = tres.mean_sq_error <= mi.third_frame_max_mse_px2 * px * px
-        confirm_fail = st.init_probation \
-            & ~(tres.success & (tres.num_inliers >= need) & mse_ok)
-        st = st._replace(init_probation=_b(False, dev))
+        with PROFILER.scope("tracking.keyframe_decision"):
+            mi = s.mono.map_init
+            need = torch.ceil(
+                mi.min_third_frame_match_percentage
+                * st.init_points.to(torch.float32)).to(torch.int64)
+            mse_ok = tres.mean_sq_error \
+                <= mi.third_frame_max_mse_px2 * px * px
+            confirm_fail = st.init_probation \
+                & ~(tres.success & (tres.num_inliers >= need) & mse_ok)
+            st = st._replace(init_probation=_b(False, dev))
 
-        # keyframe decision (computed for every frame; used on success)
-        m = culling.accumulate_tracking_stats(st.map, tres.local_mp_mask,
-                                              tres.found_mp_mask)
-        ref_kf = tres.ref_kf.long()
-        mapping_idle = (st.pend_count == 0) & (~st.ba_active
-                                               | st.ba_reopened)
-        mem_ref = ms.member_matrix(m)[ref_kf].sum()
-        pose = tres.pose
-        cam_c = se3.camera_center(pose)
-        ref_c = se3.camera_center(m.kf_pose[ref_kf])
-        ydep = se3.pose_apply(pose[None], m.mp_pos)[:, 2]
-        dmask = tres.found_mp_mask & (ydep > 0)
-        min_depth = torch.amin(torch.where(dmask, ydep,
-                                           torch.full_like(ydep,
-                                                           float("inf"))))
-        min_depth = torch.where(torch.isfinite(min_depth), min_depth,
-                                torch.ones_like(min_depth))
-        moved = torch.linalg.vector_norm(cam_c - ref_c) \
-            >= s.keyframe.min_frame_move_to_min_depth_ratio * min_depth
-        pc = s.mono.camera
-        gw, gh = (pc.keyframe_decision_grid_width,
-                  pc.keyframe_decision_grid_height)
-        tracked = tres.assoc >= 0
-        gx = torch.clamp((feats.uv[:, 0] * gw / cal.width).to(torch.int32),
-                         0, gw - 1)
-        gy = torch.clamp((feats.uv[:, 1] * gh / cal.height).to(torch.int32),
-                         0, gh - 1)
-        counts = torch.zeros(gw * gh, dtype=torch.int32, device=dev)
-        counts = counts.index_add(0, (gx * gh + gy).long(),
-                                  tracked.to(torch.int32))
-        empty_pct = torch.mean(
-            (counts < pc.keyframe_decision_min_map_points_per_grid_cell)
-            .to(torch.float32))
-        dense = empty_pct <= pc.keyframe_decision_allowed_empty_cell_percentage
-        kf = s.keyframe
-        fsk = st.frames_since_kf + 1
-        fsr = st.frames_since_reloc + 1
-        cadence = (fsr > kf.min_frame_count_reloc) \
-            & (mapping_idle | (fsk > kf.min_frame_count))
-        n_inl = tres.num_inliers
-        count_ok = (n_inl > kf.min_tracking_point_count) \
-            & (n_inl < kf.max_tracking_point_matches)
-        overlap_ok = n_inl < (mem_ref * kf.max_tracking_point_overlap
-                              + kf.min_tracking_point_count)
-        sprint = (fsr <= kf.min_frame_count_reloc) & (fsk >= 1)
-        want_kf = count_ok & ((cadence & (moved | ~dense) & overlap_ok)
-                              | sprint)
-        lost_count = torch.where(tres.success, torch.zeros_like(
-            st.lost_count), st.lost_count + 1)
-        lost = ~tres.success & (lost_count >= s.track_local_map
-                                .tracking_lost_count_until_reloc)
-        tiny = st.map.kf_valid.sum() <= 3
-        success, want, is_lost, bow, cfail, is_tiny, pend = self._read(
-            tres.success, want_kf, lost, st.bow_trained, confirm_fail, tiny,
-            st.pend_count)
+            # keyframe decision (computed for every frame; used on success)
+            m = culling.accumulate_tracking_stats(
+                st.map, tres.local_mp_mask, tres.found_mp_mask)
+            ref_kf = tres.ref_kf.long()
+            mapping_idle = (st.pend_count == 0) & (~st.ba_active
+                                                   | st.ba_reopened)
+            mem_ref = ms.member_matrix(m)[ref_kf].sum()
+            pose = tres.pose
+            cam_c = se3.camera_center(pose)
+            ref_c = se3.camera_center(m.kf_pose[ref_kf])
+            ydep = se3.pose_apply(pose[None], m.mp_pos)[:, 2]
+            dmask = tres.found_mp_mask & (ydep > 0)
+            min_depth = torch.amin(torch.where(
+                dmask, ydep, torch.full_like(ydep, float("inf"))))
+            min_depth = torch.where(torch.isfinite(min_depth), min_depth,
+                                    torch.ones_like(min_depth))
+            moved = torch.linalg.vector_norm(cam_c - ref_c) \
+                >= s.keyframe.min_frame_move_to_min_depth_ratio * min_depth
+            pc = s.mono.camera
+            gw, gh = (pc.keyframe_decision_grid_width,
+                      pc.keyframe_decision_grid_height)
+            tracked = tres.assoc >= 0
+            gx = torch.clamp(
+                (feats.uv[:, 0] * gw / cal.width).to(torch.int32), 0, gw - 1)
+            gy = torch.clamp(
+                (feats.uv[:, 1] * gh / cal.height).to(torch.int32), 0, gh - 1)
+            counts = torch.zeros(gw * gh, dtype=torch.int32, device=dev)
+            counts = counts.index_add(0, (gx * gh + gy).long(),
+                                      tracked.to(torch.int32))
+            empty_pct = torch.mean(
+                (counts < pc.keyframe_decision_min_map_points_per_grid_cell)
+                .to(torch.float32))
+            dense = empty_pct \
+                <= pc.keyframe_decision_allowed_empty_cell_percentage
+            kf = s.keyframe
+            fsk = st.frames_since_kf + 1
+            fsr = st.frames_since_reloc + 1
+            cadence = (fsr > kf.min_frame_count_reloc) \
+                & (mapping_idle | (fsk > kf.min_frame_count))
+            n_inl = tres.num_inliers
+            count_ok = (n_inl > kf.min_tracking_point_count) \
+                & (n_inl < kf.max_tracking_point_matches)
+            overlap_ok = n_inl < (mem_ref * kf.max_tracking_point_overlap
+                                  + kf.min_tracking_point_count)
+            sprint = (fsr <= kf.min_frame_count_reloc) & (fsk >= 1)
+            want_kf = count_ok & ((cadence & (moved | ~dense) & overlap_ok)
+                                  | sprint)
+            lost_count = torch.where(tres.success, torch.zeros_like(
+                st.lost_count), st.lost_count + 1)
+            lost = ~tres.success & (lost_count >= s.track_local_map
+                                    .tracking_lost_count_until_reloc)
+            tiny = st.map.kf_valid.sum() <= 3
+            success, want, is_lost, bow, cfail, is_tiny, pend = self._read(
+                tres.success, want_kf, lost, st.bow_trained, confirm_fail,
+                tiny, st.pend_count)
 
-        if success:
-            anchors = torch.cat([st.last_kf[None],
-                                 tres.anchor_kf[:ph.N_ANCHORS - 1]])
-            aok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                             tres.anchor_ok[:ph.N_ANCHORS - 1]])
-            h = ph.add_pose(st.history, int(fid), self._f32c(ts), pose,
-                            anchors, st.map.kf_pose, anchor_ok=aok)
-            st = st._replace(map=m, history=h, lost_count=lost_count,
-                             frames_since_kf=fsk.to(torch.int32),
-                             frames_since_reloc=fsr.to(torch.int32))
-            if want:
-                st = self.enqueue_keyframe(st, feats, pose, tres.assoc, fid,
-                                           int(pend))
-            st = st._replace(pose_prev2=st.pose_prev, pose_prev=pose)
-        else:
-            st = st._replace(lost_count=lost_count.to(torch.int32))
+            if success:
+                anchors = torch.cat([st.last_kf[None],
+                                     tres.anchor_kf[:ph.N_ANCHORS - 1]])
+                aok = torch.cat([torch.ones(1, dtype=torch.bool,
+                                            device=dev),
+                                 tres.anchor_ok[:ph.N_ANCHORS - 1]])
+                h = ph.add_pose(st.history, int(fid), self._f32c(ts), pose,
+                                anchors, st.map.kf_pose, anchor_ok=aok)
+                st = st._replace(map=m, history=h, lost_count=lost_count,
+                                 frames_since_kf=fsk.to(torch.int32),
+                                 frames_since_reloc=fsr.to(torch.int32))
+                if want:
+                    st = self.enqueue_keyframe(st, feats, pose, tres.assoc,
+                                               fid, int(pend))
+                st = st._replace(pose_prev2=st.pose_prev, pose_prev=pose)
+            else:
+                st = st._replace(lost_count=lost_count.to(torch.int32))
 
         recovered, pose_out = False, tres.pose
         if is_lost and bow:
-            st, recovered, rpose = self.relocalize_frame(st, feats, ts, fid,
-                                                         int(pend))
+            with PROFILER.scope("tracking.relocalize"):
+                st, recovered, rpose = self.relocalize_frame(
+                    st, feats, ts, fid, int(pend))
             if recovered:
                 pose_out = rpose
         code = CODE_TRACKING if success or recovered else (
@@ -878,40 +909,47 @@ class DeviceEngine:
             img = img.to(self.device)
         if ext_prior is not None:
             ext_prior = self._upload_prior(ext_prior)
-        gray = pyramid.to_gray_f32(img)
-        # undistort_image_pixels is not read here, as in the JAX step
-        feats = extract_features(
-            gray, self.cal, float(fe.fast_threshold), max_features=self.F,
-            num_levels=int(fe.num_levels),
-            scale_factor=float(fe.scale_factor),
-            gaussian_ksize=int(fe.gaussian_kernel_size),
-            use_orientation=bool(fe.use_orientation),
-            cells_x=int(fe.num_cells_x), cells_y=int(fe.num_cells_y),
-            use_subpixel=bool(getattr(fe, "use_subpixel", True)))
-        st = self.feed_bow_training(st, feats)
-        fp_frontend = _frontend_fingerprint(feats)
+        with PROFILER.scope("frontend"):
+            gray = pyramid.to_gray_f32(img)
+            # undistort_image_pixels is not read here, as in the JAX step
+            feats = extract_features(
+                gray, self.cal, float(fe.fast_threshold),
+                max_features=self.F, num_levels=int(fe.num_levels),
+                scale_factor=float(fe.scale_factor),
+                gaussian_ksize=int(fe.gaussian_kernel_size),
+                use_orientation=bool(fe.use_orientation),
+                cells_x=int(fe.num_cells_x), cells_y=int(fe.num_cells_y),
+                use_subpixel=bool(getattr(fe, "use_subpixel", True)))
+            st = self.feed_bow_training(st, feats)
+        with PROFILER.scope("fingerprints"):
+            fp_frontend = _frontend_fingerprint(feats)
         (initialized,) = self._read(st.initialized)
         if initialized:
-            st = self.advance_mapping(st)
-        fp_poses, fp_points, fp_assoc = _map_fingerprints(st.map)
-        fp_ba = _hash_fold(st.lam, st.ba_steps_left,
-                           st.ba_active.to(torch.int32))
+            with PROFILER.scope("mapping"):
+                st = self.advance_mapping(st)
+        with PROFILER.scope("fingerprints"):
+            fp_poses, fp_points, fp_assoc = _map_fingerprints(st.map)
+            fp_ba = _hash_fold(st.lam, st.ba_steps_left,
+                               st.ba_active.to(torch.int32))
         if initialized:
-            st, code, pose, n_inl = self.track_branch(st, feats, ts, fid,
-                                                      ext_prior)
+            with PROFILER.scope("tracking"):
+                st, code, pose, n_inl = self.track_branch(st, feats, ts, fid,
+                                                          ext_prior)
         else:
-            st, code, pose, n_inl = self.init_branch(st, feats, ts, fid)
-        _, _, fp_assoc_post = _map_fingerprints(st.map)
-        fp_sched = _hash_fold(st.pend_count, st.frames_since_kf,
-                              st.lost_count, st.covis_threshold)
-        stage_fp = torch.stack([fp_frontend, fp_poses, fp_points, fp_assoc,
-                                fp_ba, fp_assoc_post, fp_sched])
-        code_t = _f32(float(code), self.device)
-        is_kf = (st.frames_since_kf == 0) & (code == CODE_TRACKING)
-        out = _pack_output(code_t, pose, n_inl,
-                           st.map.kf_valid.sum(), st.map.mp_valid.sum(),
-                           st.loops_closed, is_kf, feats.valid.sum(),
-                           stage_fp)
+            with PROFILER.scope("init"):
+                st, code, pose, n_inl = self.init_branch(st, feats, ts, fid)
+        with PROFILER.scope("fingerprints"):
+            _, _, fp_assoc_post = _map_fingerprints(st.map)
+            fp_sched = _hash_fold(st.pend_count, st.frames_since_kf,
+                                  st.lost_count, st.covis_threshold)
+            stage_fp = torch.stack([fp_frontend, fp_poses, fp_points,
+                                    fp_assoc, fp_ba, fp_assoc_post, fp_sched])
+            code_t = _f32(float(code), self.device)
+            is_kf = (st.frames_since_kf == 0) & (code == CODE_TRACKING)
+            out = _pack_output(code_t, pose, n_inl,
+                               st.map.kf_valid.sum(), st.map.mp_valid.sum(),
+                               st.loops_closed, is_kf, feats.valid.sum(),
+                               stage_fp)
         return st, out
 
     def drain_mapping(self, st: EngineState) -> EngineState:

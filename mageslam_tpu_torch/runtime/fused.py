@@ -44,6 +44,7 @@ from mageslam_tpu_torch.tracking import stereo
 from mageslam_tpu_torch.tracking.frontend import extract_for_settings
 from mageslam_tpu_torch.utils.mediator import (AnalysisCompleted, Mediator,
                                                PoseRefined, TrackingLost)
+from mageslam_tpu_torch.utils.tracing import PROFILER
 
 _CODE_TO_STATE = {
     de.CODE_SKIPPED: TrackingState.SKIPPED,
@@ -198,11 +199,12 @@ class MageSlamTorchFused(SensorFacadeMixin):
                 self._dispatch(fid, ts, batch[j], prior)
 
     def _dispatch(self, fid, ts, img: torch.Tensor, prior) -> None:
-        self._state, out = self.engine.step(self._state, img, float(ts), fid,
-                                            ext_prior=prior)
-        self._pending.append((fid, ts, out, self._event()))
-        if len(self._pending) >= self._fetch_every:
-            self._drain()
+        with PROFILER.scope("frame", frame=fid):
+            self._state, out = self.engine.step(self._state, img, float(ts),
+                                                fid, ext_prior=prior)
+            self._pending.append((fid, ts, out, self._event()))
+            if len(self._pending) >= self._fetch_every:
+                self._drain()
 
     def _drain(self, final: bool = False) -> None:
         """Start the host copy of the queued rows as one window and
@@ -229,7 +231,8 @@ class MageSlamTorchFused(SensorFacadeMixin):
     def _materialize_window(self, window) -> None:
         meta, host, copied = window
         if copied is not None:
-            copied.synchronize()
+            with PROFILER.scope("sync"):
+                copied.synchronize()
         for (fid, ts), row in zip(meta, host.numpy()):
             self._materialize(fid, ts, row.copy())
 
@@ -311,6 +314,7 @@ class MageSlamTorchFused(SensorFacadeMixin):
         st = self._state
         m, h, s0, _ = seed_map_from_stereo(st.map, st.history, feats[0],
                                            feats[1], res, extrinsics, fid, ts)
+        self.engine.counts["keyframes_inserted"] += 2
         dev = self.device
         ident = se3.pose_identity(dev)
         self._state = st._replace(

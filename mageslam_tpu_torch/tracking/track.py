@@ -24,6 +24,7 @@ from mageslam_tpu_torch.mapstore import pose_history as ph
 from mageslam_tpu_torch.ops import matching, util
 from mageslam_tpu_torch.solvers import pnp
 from mageslam_tpu_torch.tracking.frontend import FrameFeatures
+from mageslam_tpu_torch.utils.tracing import PROFILER
 
 
 class TrackResult(NamedTuple):
@@ -96,53 +97,56 @@ def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
     num_levels = int(fe.num_levels)
     sf = float(fe.scale_factor)
     last = util.full(last_kf, dev, torch.int32)
-
-    mem = ms.member_matrix(m)
-    cov = ms.covisibility(m)
-    kf_idx, kf_ok = ms.connected_keyframes(m, last.long(), min_shared=1,
-                                           max_connected=max_local_kf - 1,
-                                           cov=cov)
-    kf_list = torch.cat([last[None], kf_idx])
-    kf_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), kf_ok])
-    local_mp = ms.local_map_points(m, kf_list, kf_ok, mem=mem)
-
-    uv_pred, z_pred = project(cal, se3.pose_apply(prior_pose[None], m.mp_pos))
-    in_img = _in_image(uv_pred, cal)
-    cam_center = se3.camera_center(prior_pose)
-    view_dir = m.mp_pos - cam_center
-    view_dir = view_dir / torch.clamp(torch.linalg.vector_norm(
-        view_dir, dim=-1, keepdim=True), min=1e-9)
-    cos_view = torch.sum(view_dir * m.mp_normal, -1)
-    has_normal = torch.linalg.vector_norm(m.mp_normal, dim=-1) > 0.5
-    cos_min = cos_deg_f32(
-        s.track_local_map.min_degrees_between_current_view_and_map_point_view)
-    angle_ok = ~has_normal | (cos_view > cos_min)
-    candidates = local_mp & (z_pred > 0) & in_img & angle_ok
-    if num_levels > 1:
-        candidates = candidates & scale_gate(m.mp_pos, m.mp_max_dist,
-                                             cam_center, num_levels, sf)
-
-    # compaction: keep the C best-covisible candidates, then back to
-    # ascending slot order
-    C = min(s.capacity.track_candidates, L)
-    obs_count = (mem[kf_list.long()] & kf_ok[:, None]).sum(0)
-    ar = torch.arange(L, device=dev)
-    sel_score = torch.where(candidates, obs_count * (L + 1) + (L - ar),
-                            torch.zeros_like(ar))
-    svals, cidx = util.topk(sel_score, C)
-    c_valid = svals > 0
-    cidx = torch.sort(torch.where(c_valid, cidx,
-                                  torch.full_like(cidx, L))).values
-    c_valid = cidx < L
-    cidx = torch.clamp(cidx, 0, L - 1)
-    pos_c = m.mp_pos[cidx]
-    desc_c = m.mp_desc[cidx]
-    uv_pred_c = uv_pred[cidx]
-    rad_scale = (search_radius_scale(pos_c, m.mp_max_dist[cidx], cam_center,
-                                     num_levels, sf)
-                 if num_levels > 1 else None)
-
     tl = s.track_local_map
+
+    with PROFILER.scope("tracking.local_map"):
+        mem = ms.member_matrix(m)
+        cov = ms.covisibility(m)
+        kf_idx, kf_ok = ms.connected_keyframes(
+            m, last.long(), min_shared=1, max_connected=max_local_kf - 1,
+            cov=cov)
+        kf_list = torch.cat([last[None], kf_idx])
+        kf_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           kf_ok])
+        local_mp = ms.local_map_points(m, kf_list, kf_ok, mem=mem)
+
+        uv_pred, z_pred = project(cal, se3.pose_apply(prior_pose[None],
+                                                      m.mp_pos))
+        in_img = _in_image(uv_pred, cal)
+        cam_center = se3.camera_center(prior_pose)
+        view_dir = m.mp_pos - cam_center
+        view_dir = view_dir / torch.clamp(torch.linalg.vector_norm(
+            view_dir, dim=-1, keepdim=True), min=1e-9)
+        cos_view = torch.sum(view_dir * m.mp_normal, -1)
+        has_normal = torch.linalg.vector_norm(m.mp_normal, dim=-1) > 0.5
+        cos_min = cos_deg_f32(
+            tl.min_degrees_between_current_view_and_map_point_view)
+        angle_ok = ~has_normal | (cos_view > cos_min)
+        candidates = local_mp & (z_pred > 0) & in_img & angle_ok
+        if num_levels > 1:
+            candidates = candidates & scale_gate(m.mp_pos, m.mp_max_dist,
+                                                 cam_center, num_levels, sf)
+
+        # compaction: keep the C best-covisible candidates, then back to
+        # ascending slot order
+        C = min(s.capacity.track_candidates, L)
+        obs_count = (mem[kf_list.long()] & kf_ok[:, None]).sum(0)
+        ar = torch.arange(L, device=dev)
+        sel_score = torch.where(candidates, obs_count * (L + 1) + (L - ar),
+                                torch.zeros_like(ar))
+        svals, cidx = util.topk(sel_score, C)
+        c_valid = svals > 0
+        cidx = torch.sort(torch.where(c_valid, cidx,
+                                      torch.full_like(cidx, L))).values
+        c_valid = cidx < L
+        cidx = torch.clamp(cidx, 0, L - 1)
+        pos_c = m.mp_pos[cidx]
+        desc_c = m.mp_desc[cidx]
+        uv_pred_c = uv_pred[cidx]
+        rad_scale = (search_radius_scale(pos_c, m.mp_max_dist[cidx],
+                                         cam_center, num_levels, sf)
+                     if num_levels > 1 else None)
+
     pe = s.pose_estimation
     ham = tl.matcher.max_hamming_distance
 
@@ -159,40 +163,47 @@ def track_frame(m: ms.MapState, feats: FrameFeatures, prior_pose, last_kf,
             min_difference=tl.matcher.min_hamming_difference)
         return matching.assign_unique(idx, dist)
 
-    mp2feat = match_round(pe.search_radius)
-    n1 = (mp2feat >= 0).sum()
-    mp2feat = torch.where(n1 < pe.feature_match_threshold,
-                          match_round(pe.wider_search_radius), mp2feat)
-    n2 = (mp2feat >= 0).sum()
-    mp2feat = torch.where(n2 < tl.min_tracked_feature_count,
-                          match_round(pe.extra_wider_search_radius), mp2feat)
+    with PROFILER.scope("tracking.match"):
+        mp2feat = match_round(pe.search_radius)
+        n1 = (mp2feat >= 0).sum()
+        mp2feat = torch.where(n1 < pe.feature_match_threshold,
+                              match_round(pe.wider_search_radius), mp2feat)
+        n2 = (mp2feat >= 0).sum()
+        mp2feat = torch.where(n2 < tl.min_tracked_feature_count,
+                              match_round(pe.extra_wider_search_radius),
+                              mp2feat)
 
-    matched = mp2feat >= 0
-    obs_xn = feats.xn_undist[torch.clamp(mp2feat, min=0).long()]
-    res1 = pnp.refine_pose(
-        prior_pose, pos_c, obs_xn, matched,
-        huber_delta=_scaled_f32(tl.initial_pose_ba_huber_width, px32),
-        outlier_thresh=_scaled_f32(tl.max_outlier_error_pose_estimation,
-                                   px32),
-        iters=6)
+    with PROFILER.scope("tracking.refine"):
+        matched = mp2feat >= 0
+        obs_xn = feats.xn_undist[torch.clamp(mp2feat, min=0).long()]
+        res1 = pnp.refine_pose(
+            prior_pose, pos_c, obs_xn, matched,
+            huber_delta=_scaled_f32(tl.initial_pose_ba_huber_width, px32),
+            outlier_thresh=_scaled_f32(tl.max_outlier_error_pose_estimation,
+                                       px32),
+            iters=6)
 
-    uv_pred2, z_pred2 = project(cal, se3.pose_apply(res1.pose[None], pos_c))
-    candidates2 = c_valid & (z_pred2 > 0) & _in_image(uv_pred2, cal)
-    idx2, dist2 = matching.radius_match(
-        uv_pred2, desc_c, candidates2, feats.uv, feats.desc, feats.valid,
-        radius=radius(tl.match_search_radius), max_distance=ham,
-        min_difference=tl.matcher.min_hamming_difference)
-    idx2 = matching.assign_unique(idx2, dist2)
-    keep1 = matched & res1.inliers
-    mp2feat = torch.where(keep1, mp2feat,
-                          torch.where(idx2 >= 0, idx2,
-                                      torch.full_like(idx2, -1)))
-    matched = mp2feat >= 0
-    obs_xn = feats.xn_undist[torch.clamp(mp2feat, min=0).long()]
-    res2 = pnp.refine_pose(
-        res1.pose, pos_c, obs_xn, matched,
-        huber_delta=_scaled_f32(tl.ba_huber_width, px32),
-        outlier_thresh=_scaled_f32(tl.max_outlier_error, px32), iters=6)
+    with PROFILER.scope("tracking.match"):
+        uv_pred2, z_pred2 = project(cal, se3.pose_apply(res1.pose[None],
+                                                        pos_c))
+        candidates2 = c_valid & (z_pred2 > 0) & _in_image(uv_pred2, cal)
+        idx2, dist2 = matching.radius_match(
+            uv_pred2, desc_c, candidates2, feats.uv, feats.desc, feats.valid,
+            radius=radius(tl.match_search_radius), max_distance=ham,
+            min_difference=tl.matcher.min_hamming_difference)
+        idx2 = matching.assign_unique(idx2, dist2)
+        keep1 = matched & res1.inliers
+        mp2feat = torch.where(keep1, mp2feat,
+                              torch.where(idx2 >= 0, idx2,
+                                          torch.full_like(idx2, -1)))
+
+    with PROFILER.scope("tracking.refine"):
+        matched = mp2feat >= 0
+        obs_xn = feats.xn_undist[torch.clamp(mp2feat, min=0).long()]
+        res2 = pnp.refine_pose(
+            res1.pose, pos_c, obs_xn, matched,
+            huber_delta=_scaled_f32(tl.ba_huber_width, px32),
+            outlier_thresh=_scaled_f32(tl.max_outlier_error, px32), iters=6)
 
     inlier_c = matched & res2.inliers
     inlier_mp = torch.zeros(L + 1, dtype=torch.bool, device=dev)

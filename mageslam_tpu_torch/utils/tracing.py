@@ -1,24 +1,51 @@
-"""Tracing / profiling / introspection.
+"""Tracing and introspection of the port.
 
-A copy of ``mageslam_tpu/utils/tracing.py`` (it holds no JAX).  The scope
-timers read the host clock.  On the card a scope around an engine call
-therefore measures the host's part of it, launches included, and not the
-device's time: kernels are queued and the call returns before they finish
-(as JAX's asynchronous dispatch returns before its device work).  The
-timers add no synchronisation; to time device work, close the scope after a
-host read of a result or a ``torch.cuda.synchronize()``.
+``Profiler`` is the port's one tracer, and ``PROFILER`` its global
+instance, off by default as the reference's SCOPE_TIMER is empty in its
+public drop (Utils/Logging.h:6).  Off, ``scope(name)`` costs one attribute
+test and records nothing.  On, each scope adds to the aggregate ``stats``
+that ``report()`` prints and records a ``Span``: its name, its start and
+end on the host clock (``time.perf_counter_ns``), the index of its parent
+span and the frame id of the engine step it belongs to.  Spans stay in
+memory until ``take_spans()`` hands them out; ``self_ns`` derives each
+span's self time (its duration less the parts its children cover) from the
+recorded tree.
 
-Equivalents of the reference's observability stack (SURVEY.md §5):
-  - SCOPE_TIMER(name) (Utils/Logging.h:6 — defined empty in the public
-    drop; originally ETW scoped timers): ``scope_timer`` context manager
-    accumulating wall-time stats per named scope (``torch.profiler``
-    traces the device).
-  - FIRE_OBJECT_TRACE typed data-point channels (arcana/analysis/
-    object_trace.h:15-21): ``ObjectTrace`` pub/sub with in-process
-    listeners.
-  - Introspection fan-out (Debugging/Introspection.h:13-40) and the
-    SkeletonLogger leveled data logger (Debugging/SkeletonLogger.h:27-136):
-    ``SkeletonLogger`` with bitmask levels.
+The clock is the host's and a scope adds no synchronisation.  On the card
+a span therefore measures the host's part of its stage -- dispatch,
+launches and the waits inside it -- not the device's time: kernels are
+queued and the call returns before they finish.  The ``sync`` spans,
+around the engine's blocking reads, say how much of that was waiting.
+
+Spans on the fused path (``runtime/fused.py``, ``runtime/device_engine.py``,
+``tracking/track.py``), placed at stage boundaries only; iterations inside
+a stage (LM steps, refinement iterations, RANSAC hypotheses) are counted
+in ``DeviceEngine.counts`` instead:
+
+  frame                      ``MageSlamTorchFused._dispatch``: one engine
+                             step and the facade's output fetch; carries
+                             the frame id
+    frontend                 feature extraction and BoW training
+    fingerprints             the step's determinism hashes and output row
+    init                     the initialization branch
+    mapping                  ``DeviceEngine.advance_mapping``
+      mapping.local_ba       the local-BA call and its write-back
+      mapping.insert_keyframe  ``drain_pending``
+      mapping.reopen_window  ``reopen_window``
+      mapping.finish         ``finish_mapping`` less its loop attempt
+      mapping.loop           ``try_loop``
+    tracking                 ``DeviceEngine.track_branch``
+      tracking.local_map     covisibility, candidate gates, compaction
+      tracking.match         radius searches with unique assignment
+      tracking.refine        pose refinements
+      tracking.keyframe_decision  the decision and the keyframe's enqueue
+      tracking.relocalize    ``relocalize_frame``
+    sync                     a blocking device read (``DeviceEngine._read``,
+                             the facade's wait on its copied output rows),
+                             under the stage that waited
+
+Also here: the reference's SkeletonLogger leveled data logger
+(Debugging/SkeletonLogger.h:27-136), ``SkeletonLogger`` with bitmask levels.
 """
 
 from __future__ import annotations
@@ -28,11 +55,11 @@ import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from enum import IntFlag
-from typing import Any, Callable
+from typing import Any, NamedTuple
 
 
 # ---------------------------------------------------------------------------
-# scope timers
+# scope timers and spans
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -46,28 +73,82 @@ class ScopeStats:
         return 1000.0 * self.total_s / max(self.count, 1)
 
 
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int       # index of the parent span in the same list; -1: none
+    frame: int        # frame id of the engine step; -1 outside one
+
+
+def self_ns(spans: list[Span]) -> list[int]:
+    """Each span's duration less its children's (which never overlap one
+    another: a scope closes before its sibling opens)."""
+    out = [s.end_ns - s.start_ns for s in spans]
+    for s in spans:
+        if s.parent >= 0:
+            out[s.parent] -= s.end_ns - s.start_ns
+    return out
+
+
+_OFF = contextlib.nullcontext()
+
+
+class _Scope:
+    __slots__ = ("prof", "name", "frame", "rec")
+
+    def __init__(self, prof: "Profiler", name: str, frame):
+        self.prof, self.name, self.frame = prof, name, frame
+
+    def __enter__(self):
+        p = self.prof
+        parent = p._open[-1] if p._open else -1
+        frame = self.frame
+        if frame is None:
+            frame = p._spans[parent][4] if parent >= 0 else -1
+        p._open.append(len(p._spans))
+        # [name, start, end, parent, frame]: a Span once it closes
+        self.rec = [self.name, time.perf_counter_ns(), -1, parent, frame]
+        p._spans.append(self.rec)
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        p = self.prof
+        p._open.pop()
+        self.rec[2] = t1
+        dt = (t1 - self.rec[1]) * 1e-9
+        s = p.stats[self.name]
+        s.count += 1
+        s.total_s += dt
+        s.max_s = max(s.max_s, dt)
+        return False
+
+
 class Profiler:
-    """Named scoped timers (SCOPE_TIMER analog).  Thread-unsafe by design —
-    one per pipeline, like the reference's per-thread instrumentation."""
+    """Named scopes (SCOPE_TIMER analog) that record spans.  Thread-unsafe
+    by design -- one per pipeline, like the reference's per-thread
+    instrumentation; sessions in one process share ``PROFILER``."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.stats: dict[str, ScopeStats] = defaultdict(ScopeStats)
+        self._spans: list[list] = []
+        self._open: list[int] = []
 
-    @contextlib.contextmanager
-    def scope(self, name: str):
+    def scope(self, name: str, frame: int | None = None):
+        """A context manager timing ``name``; ``frame`` sets the span's
+        frame id, which its descendants inherit."""
         if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            s = self.stats[name]
-            s.count += 1
-            s.total_s += dt
-            s.max_s = max(s.max_s, dt)
+            return _OFF
+        return _Scope(self, name, frame)
+
+    def take_spans(self) -> list[Span]:
+        """The spans recorded since the last call, in the order they
+        opened (parents index into this list); none may still be open."""
+        if self._open:
+            raise RuntimeError(f"{len(self._open)} span(s) still open")
+        spans, self._spans = self._spans, []
+        return [Span(*r) for r in spans]
 
     def report(self) -> str:
         lines = [f"{'scope':<40} {'count':>7} {'mean ms':>9} {'max ms':>9}"]
@@ -83,39 +164,6 @@ PROFILER = Profiler(enabled=False)  # global default, off like the reference
 
 def scope_timer(name: str):
     return PROFILER.scope(name)
-
-
-# ---------------------------------------------------------------------------
-# object traces (typed pub/sub data points)
-# ---------------------------------------------------------------------------
-
-class ObjectTrace:
-    """FIRE_OBJECT_TRACE analog: typed channels + listeners."""
-
-    def __init__(self):
-        self._listeners: dict[str, list[Callable[[Any], None]]] = \
-            defaultdict(list)
-        self._history: dict[str, list[Any]] = defaultdict(list)
-        self.keep_history = False
-
-    def listen(self, channel: str, fn: Callable[[Any], None]):
-        self._listeners[channel].append(fn)
-
-    def fire(self, channel: str, value: Any):
-        if self.keep_history:
-            self._history[channel].append(value)
-        for fn in self._listeners[channel]:
-            fn(value)
-
-    def history(self, channel: str):
-        return list(self._history[channel])
-
-
-TRACES = ObjectTrace()
-
-
-def fire_object_trace(channel: str, value: Any):
-    TRACES.fire(channel, value)
 
 
 # ---------------------------------------------------------------------------

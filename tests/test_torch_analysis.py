@@ -42,8 +42,7 @@ from mageslam_tpu_torch.mapstore.map_state import MapState
 from mageslam_tpu_torch.runtime import skeleton_key
 from mageslam_tpu_torch.runtime.fossilized import FossilizedMap
 from mageslam_tpu_torch.utils import determinism, xray
-from mageslam_tpu_torch.utils.tracing import (ObjectTrace, Profiler,
-                                              SkeletonLogger,
+from mageslam_tpu_torch.utils.tracing import (Profiler, SkeletonLogger,
                                               SkeletonLoggerLevel)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
@@ -408,26 +407,28 @@ def test_profiler_scopes():
         with p.scope("a"):
             pass
     with pytest.raises(KeyError):
-        with p.scope("b"):
-            raise KeyError("inside")          # the scope still closes
+        with p.scope("b", frame=7):
+            with p.scope("c"):
+                raise KeyError("inside")      # the scopes still close
     assert p.stats["a"].count == 2 and p.stats["b"].count == 1
     report = p.report()
     assert "a" in report and "b" in report
+    spans = p.take_spans()
+    assert [(s.name, s.parent, s.frame) for s in spans] == [
+        ("a", -1, -1), ("a", -1, -1), ("b", -1, 7), ("c", 2, 7)]
+    assert all(s.start_ns <= s.end_ns for s in spans)
+    assert spans[2].start_ns <= spans[3].start_ns \
+        and spans[3].end_ns <= spans[2].end_ns
+    assert p.take_spans() == []
     off = Profiler(enabled=False)
     with off.scope("a"):
         pass
-    assert dict(off.stats) == {}
+    assert dict(off.stats) == {} and off.take_spans() == []
 
 
 def test_object_trace_and_skeleton_logger():
-    tr = ObjectTrace()
-    seen = []
-    tr.listen("pose", seen.append)
-    tr.fire("pose", 42)
-    assert seen == [42] and tr.history("pose") == []
-    tr.keep_history = True
-    tr.fire("pose", 43)
-    assert tr.history("pose") == [43]
+    """The skeleton logger's levels (the port keeps no ObjectTrace: no
+    code of it fired one)."""
     log = SkeletonLogger(level=SkeletonLoggerLevel.TRACKING
                          | SkeletonLoggerLevel.IMAGE)
     log.log(SkeletonLoggerLevel.TRACKING, "t")
